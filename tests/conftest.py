@@ -31,6 +31,7 @@ maybe_install()
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration tests")
+    config.addinivalue_line("markers", "cuda: needs a CUDA device (hand-written kernels); skips without one")
     config.addinivalue_line(
         "markers",
         "chaos: seeded fault-injection tests (zeebe_tpu.testing.chaos); "

@@ -1,0 +1,767 @@
+// Hand-written Hopper kernels for the BPMN automaton (sm_90a).
+//
+// What they replace (the reference's jax.jit programs, lowered by XLA):
+//   - zeebe_tpu/ops/automaton.py::step (:366), with _eval_program (:213),
+//     _eval_conditions (:281), _scope_occupancy (:295), _scope_drained
+//     (:316) and _mi_spawnable (:342): one lock-step of every live token.
+//   - run_collect (:704) with _pack_events (:659): up to n_steps steps with
+//     an early exit, one packed int32 event row per step.
+//   - run_to_completion (:773): steps with auto jobs and no events until no
+//     token is live.
+//
+// What bounds them on an H100: a step must read once the tables and state
+// arrays its KernelConfig uses, and write once those it changes
+// (join_counts is written only with joins, mi_left read and written only
+// with MI, var_slots read only with conditions). At the serving geometry
+// (the mixed set: I = 2048 instances, T = 8192 token slots, E = 13, FO = 3;
+// joins and conditions) that is 448,282 bytes, 0.13 us at 3.35 TB/s; at the
+// kernel-ceiling geometry (one_task, I = T = 1<<20, no flag set) 50,331,738
+// bytes, 15 us (chip_smoke.py computes and prints both). The
+// step is a chain of dependent grid-wide phases (classify, rank joins,
+// prefix-sum the free and placed slots, scatter, complete instances, recount
+// scopes), ~10 launches, so at the serving geometry launch latency and the
+// host's per-call work bound it, not bytes.
+//
+// What the design does about it (a simple design that is right first):
+//   - every phase is one grid-wide launch on the caller's stream; all launches
+//     of a chunk are enqueued back to back and the host never synchronizes
+//     inside a chunk. The run_collect early exit is a device flag (ctl[GO])
+//     that every launch reads first, returning at once when it is 0;
+//   - kernels allocate nothing: the wrapper hands in the state (updated in
+//     place, after one copy from the caller's state so the API stays
+//     functional) and one int32 scratch buffer; arrays the config never
+//     writes are shared with the caller's state and not copied;
+//   - join ranks need no sort: each join request links itself into a per-key
+//     list (atomicExch on the key's head) and then counts the list entries
+//     with a lower flat index — the rank the reference's stable argsort
+//     gives, independent of the list's order;
+//   - integer atomics only where the order cannot show (sums of int32 wrap
+//     mod 2^32 in any order), so every output is bit-exact and deterministic.
+// Fusing launches, CUDA graphs and shared-memory tiles are later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// kernel opcodes (ops/tables.py)
+constexpr int K_NONE = 0, K_TASK = 2, K_EXCLUSIVE = 3, K_JOIN = 5, K_CATCH = 7,
+              K_SCOPE = 8, K_HOST = 9, K_MI = 10, K_INCLUSIVE = 11;
+// token phases
+constexpr int PHASE_AT = 0, PHASE_WAIT = 1, PHASE_DONE = 2, PHASE_STALLED = 3;
+// condition VM opcodes
+constexpr int OP_PUSH_CONST = 1, OP_PUSH_VAR = 2, OP_LT = 3, OP_LE = 4, OP_GT = 5,
+              OP_GE = 6, OP_EQ = 7, OP_NE = 8, OP_AND = 9, OP_OR = 10, OP_NOT = 11,
+              OP_NEG = 16;
+constexpr int MAX_PROG_LEN = 24, STACK_DEPTH = 8;
+
+// KernelConfig bits
+constexpr int CFG_JOINS = 1, CFG_CONDITIONS = 2, CFG_SCOPES = 4, CFG_MI = 8;
+// run modes
+constexpr int MODE_AUTO_JOBS = 1, MODE_EMIT = 2, MODE_COLLECT = 4, MODE_COMPLETION = 8;
+// ctl slots
+constexpr int CTL_GO = 0, CTL_ACTIVE = 1, CTL_ANY_LIVE = 2, CTL_STEPS = 3,
+              CTL_FREE_TOTAL = 4, CTL_REQ_TOTAL = 5;
+// tok_flags bits
+constexpr int TF_COMPLETING = 1, TF_SPAWNED = 2;
+// req_flags bits
+constexpr int RF_TAKE = 1, RF_JOIN = 2;
+
+constexpr int BLOCK = 256;
+constexpr int SCAN_THREADS = 1024;
+constexpr int SCAN_ITEMS = 4;
+constexpr int SCAN_TILE = SCAN_THREADS * SCAN_ITEMS;
+
+}  // namespace
+
+extern "C" {
+
+struct ZtTables {
+  const int32_t* kernel_op;     // [D, E]
+  const int32_t* in_count;      // [D, E]
+  const int32_t* out_count;     // [D, E]
+  const int32_t* out_target;    // [D, E, FO]
+  const int32_t* out_cond;      // [D, E, FO]
+  const int32_t* default_slot;  // [D, E]
+  const int32_t* scope_start;   // [D, E]
+  const int8_t* in_scope;       // [D, E, E]
+  const int8_t* mi_sequential;  // [D, E]
+  const int32_t* cond_ops;      // [C, MAX_PROG_LEN]
+  const int32_t* cond_args;     // [C, MAX_PROG_LEN, 2]
+  int32_t D, E, FO, C;
+};
+
+struct ZtState {
+  int32_t* elem;          // [T]
+  int32_t* phase;         // [T]
+  int32_t* inst;          // [T]
+  const int32_t* def_of;  // [I]
+  const int32_t* var_slots;  // [I, S, 2]
+  int32_t* join_counts;   // [I, E]
+  int32_t* mi_left;       // [I, E]
+  uint8_t* done;          // [I] bool
+  uint8_t* incident;      // [I] bool
+  int32_t* transitions;   // scalar
+  int32_t* jobs_created;  // scalar
+  int32_t* completed;     // scalar
+  uint8_t* overflow;      // scalar bool
+  int32_t T, I, S;
+};
+
+struct ZtScratch {
+  int32_t* ctl;           // [8]
+  int32_t* occ;           // [I*E] live tokens inside each scope
+  int32_t* pend;          // [I*E] unconsumed join arrivals inside each scope
+  int32_t* arrivals;      // [I*E] join arrivals this step
+  int32_t* consumed;      // [I*E] join arrivals consumed this step
+  int32_t* head;          // [I*E] last join request of the key (-1 none)
+  int32_t* tpi;           // [I]   live tokens per instance after the step
+  int32_t* req_target;    // [T*FO]
+  int32_t* req_flags;     // [T*FO]
+  int32_t* next;          // [T*FO] join request list links
+  int32_t* proceeds;      // [T*FO] 0/1
+  int32_t* place_rank;    // [T*FO]
+  int32_t* free_flag;     // [T] 0/1
+  int32_t* tok_flags;     // [T]
+  int32_t* tok_inst;      // [T] start-of-step inst
+  int32_t* tok_elem;      // [T] start-of-step elem
+  int32_t* slot_of_rank;  // [T]
+  int32_t* block_sums;    // [nb_free + nb_req]
+};
+
+}  // extern "C"
+
+namespace {
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// Every lane of the warp must call these (no divergent early return).
+__device__ __forceinline__ void warp_add(int32_t* dst, int v) {
+  int s = __reduce_add_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0 && s != 0) atomicAdd(dst, s);
+}
+
+__device__ __forceinline__ void warp_flag(int32_t* dst, bool v) {
+  if (__any_sync(0xffffffffu, v) && (threadIdx.x & 31) == 0) *dst = 1;
+}
+
+// One condition program against one instance's slots (reference
+// _eval_program). Stack reads clamp into [0, DEPTH) like the reference's
+// gathers; a NOP writes nothing (the reference's dropped scatter). The stack
+// is a plain array indexed by sp, so it lives in local memory (L1). An
+// earlier form that kept it in registers through unrolled selects returned
+// false for every program on an H100 (nvcc 12.8, sm_90a); its cause was not
+// found (ROADMAP section C).
+__device__ bool eval_program(const int32_t* ops, const int32_t* args,
+                             const int32_t* slots, int S) {
+  int stk[STACK_DEPTH * 2];  // (hi, lo) per entry
+  for (int k = 0; k < STACK_DEPTH * 2; ++k) stk[k] = 0;
+  int sp = 0;
+  for (int p = 0; p < MAX_PROG_LEN; ++p) {
+    const int op = ops[p];
+    const int a0 = args[2 * p], a1 = args[2 * p + 1];
+    int ph = a0, pl = a1;
+    if (op == OP_PUSH_VAR) {
+      int v = a0 < 0 ? a0 + S : a0;
+      v = clampi(v, 0, S - 1);
+      ph = slots[2 * v];
+      pl = slots[2 * v + 1];
+    }
+    const int ia = clampi(sp - 2, 0, STACK_DEPTH - 1);
+    const int ib = clampi(sp - 1, 0, STACK_DEPTH - 1);
+    const int ah = stk[2 * ia], al = stk[2 * ia + 1];
+    const int bh = stk[2 * ib], bl = stk[2 * ib + 1];
+    const bool lt = ah < bh || (ah == bh && al < bl);
+    const bool eq = ah == bh && al == bl;
+    bool bv = false;
+    if (op == OP_LT) bv = lt;
+    else if (op == OP_LE) bv = lt || eq;
+    else if (op == OP_GT) bv = !(lt || eq);
+    else if (op == OP_GE) bv = !lt;
+    else if (op == OP_EQ) bv = eq;
+    else if (op == OP_NE) bv = !eq;
+    else if (op == OP_AND) bv = ah > 0 && bh > 0;
+    else if (op == OP_OR) bv = ah > 0 || bh > 0;
+    const bool is_push = op == OP_PUSH_CONST || op == OP_PUSH_VAR;
+    const bool is_un = op == OP_NOT || op == OP_NEG;
+    const bool is_bin = op >= OP_LT && op <= OP_OR;
+    int nh, nl;
+    if (is_push) {
+      nh = ph; nl = pl;
+    } else if (is_bin) {
+      nh = bv ? 1 : 0; nl = 0;
+    } else if (op == OP_NOT) {
+      // 1 - min(b, 1), in unsigned arithmetic so INT32_MIN wraps as in JAX
+      nh = (int)(1u - (unsigned)(bh < 1 ? bh : 1)); nl = 0;
+    } else {
+      // NEG: bitwise NOT of both planes; key(+0.0) = (0, INT32_MIN) stays
+      const bool zero = bh == 0 && bl == INT32_MIN;
+      nh = zero ? bh : ~bh; nl = zero ? bl : ~bl;
+    }
+    if (is_push || is_bin || is_un) {
+      const int wp = clampi(is_push ? sp : (is_bin ? sp - 2 : sp - 1), 0, STACK_DEPTH - 1);
+      stk[2 * wp] = nh;
+      stk[2 * wp + 1] = nl;
+    }
+    sp += is_push ? 1 : (is_bin ? -1 : 0);
+  }
+  return stk[2 * clampi(sp - 1, 0, STACK_DEPTH - 1)] > 0;
+}
+
+__global__ void k_prepare(ZtState in, ZtState st, ZtScratch sc, int IE, int mode,
+                          int32_t* out, int64_t out_len) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t x0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int64_t x = x0; x < st.T; x += stride) {
+    st.elem[x] = in.elem[x];
+    st.phase[x] = in.phase[x];
+    st.inst[x] = in.inst[x];
+  }
+  // join_counts / mi_left are shared with the caller's state (same pointer)
+  // when the config never writes them: nothing to copy then
+  const bool copy_joins = st.join_counts != in.join_counts;
+  const bool copy_mi = st.mi_left != in.mi_left;
+  for (int64_t x = x0; x < IE; x += stride) {
+    if (copy_joins) st.join_counts[x] = in.join_counts[x];
+    if (copy_mi) st.mi_left[x] = in.mi_left[x];
+    sc.occ[x] = 0;
+    sc.pend[x] = 0;
+    sc.arrivals[x] = 0;
+    sc.consumed[x] = 0;
+    sc.head[x] = -1;
+  }
+  for (int64_t x = x0; x < st.I; x += stride) {
+    st.done[x] = in.done[x];
+    st.incident[x] = in.incident[x];
+    sc.tpi[x] = 0;
+  }
+  if (out != nullptr) {
+    for (int64_t x = x0; x < out_len; x += stride) out[x] = 0;
+  }
+  if (x0 == 0) {
+    *st.transitions = *in.transitions;
+    *st.jobs_created = *in.jobs_created;
+    *st.completed = *in.completed;
+    *st.overflow = *in.overflow;
+    for (int k = 0; k < 8; ++k) sc.ctl[k] = 0;
+    // run_to_completion's loop test runs before its first step (k_any_live)
+    sc.ctl[CTL_GO] = (mode & MODE_COMPLETION) ? 0 : 1;
+  }
+}
+
+// go = any token live (run_to_completion's loop condition, before step 1)
+__global__ void k_any_live(ZtState st, ZtScratch sc) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  warp_flag(&sc.ctl[CTL_GO], t < st.T && st.elem[t] >= 0);
+}
+
+// occ/pend for the current state. occ must be zero on entry (k_prepare, or
+// k_finish_instances of the step before).
+__global__ void k_occupancy(ZtTables tb, ZtState st, ZtScratch sc) {
+  if (!sc.ctl[CTL_GO]) return;
+  const int E = tb.E;
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x < st.T) {
+    const int e = st.elem[x];
+    if (e >= 0) {
+      const int i = st.inst[x];
+      const int d = st.def_of[i];
+      const int8_t* row = tb.in_scope + ((int64_t)d * E + e) * E;
+      for (int s = 0; s < E; ++s) {
+        if (row[s]) atomicAdd(&sc.occ[(int64_t)i * E + s], 1);
+      }
+    }
+  }
+  if (x < st.I * E) {
+    const int i = x / E, s = x % E;
+    const int d = st.def_of[i];
+    unsigned sum = 0;
+    for (int e = 0; e < E; ++e) {
+      sum += (unsigned)st.join_counts[(int64_t)i * E + e] *
+             (unsigned)tb.in_scope[((int64_t)d * E + e) * E + s];
+    }
+    sc.pend[x] = (int)sum;
+  }
+}
+
+// classify every token, run its gateway conditions, route, and emit its
+// placement requests (one thread per token)
+__global__ void k_classify(ZtTables tb, ZtState st, ZtScratch sc, int mode, int cfg,
+                           int32_t* row) {
+  if (!sc.ctl[CTL_GO]) return;
+  const int E = tb.E, FO = tb.FO;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = t < st.T;
+  int trans = 0, jobs = 0;
+  bool keep_live = false;
+  if (in) {
+    const int e = st.elem[t];
+    const int ph = st.phase[t];
+    const int i = st.inst[t];
+    const bool live = e >= 0;
+    const int e0 = e < 0 ? 0 : e;
+    const int d = st.def_of[i];
+    const int64_t de = (int64_t)d * E + e0;
+    const int64_t ie = (int64_t)i * E + e0;
+    const int op = live ? tb.kernel_op[de] : K_NONE;
+    const bool stalled = ph == PHASE_STALLED;
+    const bool is_task = op == K_TASK;
+    const bool is_wait = is_task || op == K_CATCH;
+    const bool is_scope = op == K_SCOPE;
+    const bool is_host = op == K_HOST;
+    const bool is_mi = op == K_MI;
+    const bool executing = live && ph == PHASE_AT && !stalled;
+    const bool arriving_task = executing && is_wait;
+    const bool arriving_scope = executing && is_scope;
+    const bool arriving_host = executing && is_host;
+    const bool arriving_mi = executing && is_mi;
+    const bool pass_attempt = executing && !is_wait && !is_scope && !is_host && !is_mi;
+    const bool waiting_done = live && is_wait &&
+        ph == ((mode & MODE_AUTO_JOBS) ? PHASE_WAIT : PHASE_DONE);
+
+    bool scope_resume = false, mi_spawn = false;
+    if (cfg & (CFG_SCOPES | CFG_MI)) {
+      const bool drained_here = sc.occ[ie] == 0 && sc.pend[ie] == 0;
+      bool scope_like = op == K_SCOPE;
+      if (cfg & CFG_MI) scope_like = scope_like || (op == K_MI && st.mi_left[ie] == 0);
+      scope_resume = live && scope_like && ph == PHASE_WAIT && drained_here;
+      if (cfg & CFG_MI) {
+        const bool seq = tb.mi_sequential[de] > 0;
+        mi_spawn = live && op == K_MI && ph == PHASE_WAIT && st.mi_left[ie] > 0 &&
+                   (!seq || drained_here);
+      }
+    }
+
+    const bool is_excl = op == K_EXCLUSIVE;
+    const bool is_incl = op == K_INCLUSIVE;
+    const int32_t* targets = tb.out_target + de * FO;
+    unsigned cond_true = 0;
+    if ((cfg & CFG_CONDITIONS) && (is_excl || is_incl) && pass_attempt) {
+      const int32_t* conds = tb.out_cond + de * FO;
+      const int32_t* slots = st.var_slots + (int64_t)i * st.S * 2;
+      for (int fo = 0; fo < FO; ++fo) {
+        const int c = conds[fo];
+        if (c >= 0 &&
+            eval_program(tb.cond_ops + (int64_t)c * MAX_PROG_LEN,
+                         tb.cond_args + (int64_t)c * MAX_PROG_LEN * 2, slots, st.S)) {
+          cond_true |= 1u << fo;
+        }
+      }
+    }
+    const bool any_true = cond_true != 0;
+    const int first_true = any_true ? __ffs(cond_true) - 1 : 0;
+    const int dflt = tb.default_slot[de];
+    const int excl_choice = any_true ? first_true : dflt;
+    const bool no_match = (is_excl || is_incl) && pass_attempt && !any_true && dflt < 0;
+    const bool full_pass = pass_attempt && !no_match;
+    const bool completing = full_pass || waiting_done || scope_resume;
+    const int out_count = tb.out_count[de];
+
+    unsigned take = 0;
+    for (int fo = 0; fo < FO; ++fo) {
+      bool tk;
+      if (is_excl) tk = fo == excl_choice && excl_choice >= 0;
+      else if (is_incl) tk = ((cond_true >> fo) & 1u) || (fo == dflt && !any_true && dflt >= 0);
+      else tk = fo < out_count;
+      if (tk && completing && targets[fo] >= 0) take |= 1u << fo;
+    }
+    const bool spawning = arriving_scope || arriving_mi || mi_spawn;
+    for (int fo = 0; fo < FO; ++fo) {
+      const int64_t r = (int64_t)t * FO + fo;
+      int rt = ((take >> fo) & 1u) ? targets[fo] : -1;
+      if (fo == 0 && (cfg & (CFG_SCOPES | CFG_MI)) && spawning) rt = tb.scope_start[de];
+      sc.req_target[r] = rt;
+      int rf = ((take >> fo) & 1u) ? RF_TAKE : 0;
+      bool proceeds = rt >= 0;
+      if ((cfg & CFG_JOINS) && rt >= 0 && tb.kernel_op[(int64_t)d * E + rt] == K_JOIN) {
+        const int64_t key = (int64_t)i * E + rt;
+        atomicAdd(&sc.arrivals[key], 1);
+        sc.next[r] = atomicExch(&sc.head[key], (int)r);
+        rf |= RF_JOIN;
+        proceeds = false;  // decided by k_join_rank
+      }
+      sc.req_flags[r] = rf;
+      sc.proceeds[r] = proceeds ? 1 : 0;
+    }
+
+    if (arriving_task || arriving_scope || arriving_host || arriving_mi) {
+      st.phase[t] = PHASE_WAIT;
+    }
+    if (no_match) {
+      st.phase[t] = PHASE_STALLED;
+      st.incident[i] = 1;
+    }
+    keep_live = live && !completing;
+    if (keep_live) atomicAdd(&sc.tpi[i], 1);
+    sc.tok_inst[t] = i;
+    sc.tok_elem[t] = e;
+    sc.tok_flags[t] = (completing ? TF_COMPLETING : 0) |
+                      (((cfg & CFG_MI) && (arriving_mi || mi_spawn)) ? TF_SPAWNED : 0);
+    sc.free_flag[t] = (!live || completing) ? 1 : 0;
+
+    if (mode & MODE_EMIT) {
+      const int task_arrive = arriving_task || arriving_scope || arriving_mi;
+      const int task_done = waiting_done || scope_resume;
+      const int flags = (full_pass ? 1 : 0) | (task_arrive << 1) | (task_done << 2) |
+                        ((no_match ? 1 : 0) << 3);
+      // elem << 5 shifted as unsigned: elem == -1 gives -32 without UB
+      row[(int64_t)t * (2 + FO)] = flags | (int)((unsigned)e << 5);
+      row[(int64_t)t * (2 + FO) + 1] = i;
+    }
+    trans = (full_pass ? 4 : 0) + ((arriving_task || arriving_scope || arriving_mi) ? 2 : 0) +
+            ((waiting_done || scope_resume) ? 2 : 0) + __popc(take);
+    jobs = (arriving_task && is_task) ? 1 : 0;
+  }
+  warp_add(st.transitions, trans);
+  warp_add(st.jobs_created, jobs);
+  warp_flag(&sc.ctl[CTL_ANY_LIVE], keep_live);
+}
+
+// rank each join request among the same (instance, join) key by flat index
+// and decide whether it fills the join (one thread per request)
+__global__ void k_join_rank(ZtTables tb, ZtState st, ZtScratch sc) {
+  if (!sc.ctl[CTL_GO]) return;
+  const int E = tb.E, FO = tb.FO;
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= (int64_t)st.T * FO) return;
+  if (!(sc.req_flags[r] & RF_JOIN)) return;
+  const int i = sc.tok_inst[r / FO];
+  const int rt = sc.req_target[r];
+  const int64_t key = (int64_t)i * E + rt;
+  const int c = sc.arrivals[key];
+  unsigned rank = 0;
+  if (c > 1) {
+    int n = sc.head[key];
+    for (int j = 0; j < c && n >= 0; ++j) {
+      if (n < r) ++rank;
+      n = sc.next[n];
+    }
+  }
+  const int d = st.def_of[i];
+  int arity = tb.in_count[(int64_t)d * E + rt];
+  if (arity < 1) arity = 1;
+  const int count_after = (int)((unsigned)st.join_counts[key] + rank + 1u);
+  int m = count_after % arity;
+  if (m < 0) m += arity;  // floor modulo, as jnp's %
+  if (m == 0) {
+    atomicAdd(&sc.consumed[key], arity);
+    sc.proceeds[r] = 1;
+  }
+}
+
+// block-wide exclusive scan of one int per thread; returns the exclusive
+// prefix and writes the block total to *total
+__device__ int block_exclusive_scan(int v, int* total) {
+  __shared__ int warp_sums[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nwarps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += u;
+    }
+    warp_sums[lane] = w;
+  }
+  __syncthreads();
+  const int excl = (warp > 0 ? warp_sums[warp - 1] : 0) + incl - v;
+  *total = warp_sums[nwarps - 1];
+  __syncthreads();
+  return excl;
+}
+
+// scan pass 1: tile sums of free_flag (grid.y 0) and proceeds (grid.y 1)
+__global__ void k_scan_sums(ZtState st, ZtScratch sc, int FO, int nb_free, int nb_req) {
+  if (!sc.ctl[CTL_GO]) return;
+  const bool req = blockIdx.y == 1;
+  const int nb = req ? nb_req : nb_free;
+  if ((int)blockIdx.x >= nb) return;
+  const int32_t* a = req ? sc.proceeds : sc.free_flag;
+  const int64_t n = req ? (int64_t)st.T * FO : st.T;
+  const int64_t base = (int64_t)blockIdx.x * SCAN_TILE + (int64_t)threadIdx.x * SCAN_ITEMS;
+  int v = 0;
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    if (base + k < n) v += a[base + k];
+  }
+  int total;
+  block_exclusive_scan(v, &total);
+  if (threadIdx.x == 0) sc.block_sums[(req ? nb_free : 0) + blockIdx.x] = total;
+}
+
+// scan pass 2 (one block): exclusive scan of the tile sums, and the totals
+__global__ void k_scan_blocks(ZtScratch sc, int nb_free, int nb_req) {
+  if (!sc.ctl[CTL_GO]) return;
+  for (int which = 0; which < 2; ++which) {
+    int32_t* sums = sc.block_sums + (which ? nb_free : 0);
+    const int nb = which ? nb_req : nb_free;
+    int carry = 0;
+    for (int b0 = 0; b0 < nb; b0 += blockDim.x) {
+      const int b = b0 + threadIdx.x;
+      const int v = b < nb ? sums[b] : 0;
+      int total;
+      const int excl = block_exclusive_scan(v, &total);
+      if (b < nb) sums[b] = carry + excl;
+      carry += total;
+    }
+    if (threadIdx.x == 0) sc.ctl[which ? CTL_REQ_TOTAL : CTL_FREE_TOTAL] = carry;
+  }
+}
+
+// scan pass 3: ranks. free slots: slot_of_rank[free_rank] = t, and a
+// completing token's slot is freed (elem = -1); requests: place_rank.
+__global__ void k_scan_write(ZtState st, ZtScratch sc, int FO, int nb_free, int nb_req) {
+  if (!sc.ctl[CTL_GO]) return;
+  const bool req = blockIdx.y == 1;
+  const int nb = req ? nb_req : nb_free;
+  if ((int)blockIdx.x >= nb) return;
+  const int32_t* a = req ? sc.proceeds : sc.free_flag;
+  const int64_t n = req ? (int64_t)st.T * FO : st.T;
+  const int64_t base = (int64_t)blockIdx.x * SCAN_TILE + (int64_t)threadIdx.x * SCAN_ITEMS;
+  int f[SCAN_ITEMS];
+  int v = 0;
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    f[k] = base + k < n ? a[base + k] : 0;
+    v += f[k];
+  }
+  int total;
+  int rank = block_exclusive_scan(v, &total) +
+             sc.block_sums[(req ? nb_free : 0) + blockIdx.x];
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    const int64_t x = base + k;
+    if (x < n && f[k]) {
+      if (req) {
+        sc.place_rank[x] = rank;
+      } else {
+        sc.slot_of_rank[rank] = (int)x;
+        if (sc.tok_flags[x] & TF_COMPLETING) st.elem[x] = -1;
+      }
+      ++rank;
+    }
+  }
+}
+
+// scatter placement into the freed slots, write dest|take columns, and
+// spend one MI child per spawning body (one thread per request)
+__global__ void k_place(ZtTables tb, ZtState st, ZtScratch sc, int mode, int cfg,
+                        int32_t* row) {
+  if (!sc.ctl[CTL_GO]) return;
+  const int E = tb.E, FO = tb.FO;
+  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = r < (int64_t)st.T * FO;
+  bool placed = false, ovf = false;
+  if (in) {
+    const int64_t t = r / FO;
+    const int fo = (int)(r - t * FO);
+    int dest = st.T;
+    if (sc.proceeds[r]) {
+      const int pr = sc.place_rank[r];
+      if (pr < sc.ctl[CTL_FREE_TOTAL]) {
+        const int s = sc.slot_of_rank[pr];
+        const int i = sc.tok_inst[t];
+        st.elem[s] = sc.req_target[r];
+        st.inst[s] = i;
+        st.phase[s] = PHASE_AT;
+        atomicAdd(&sc.tpi[i], 1);
+        dest = s;
+        placed = true;
+      } else {
+        ovf = true;
+      }
+    }
+    if (mode & MODE_EMIT) {
+      const unsigned take = (sc.req_flags[r] & RF_TAKE) ? 1u : 0u;
+      row[t * (2 + FO) + 2 + fo] = (int)((unsigned)dest | (take << 16));
+    }
+    if ((cfg & CFG_MI) && fo == 0 && (sc.tok_flags[t] & TF_SPAWNED)) {
+      const int e = sc.tok_elem[t];
+      atomicAdd(&st.mi_left[(int64_t)sc.tok_inst[t] * E + (e < 0 ? 0 : e)], -1);
+    }
+  }
+  warp_flag(&sc.ctl[CTL_ANY_LIVE], placed);
+  if (__any_sync(0xffffffffu, ovf) && (threadIdx.x & 31) == 0) *st.overflow = 1;
+}
+
+// per instance: apply join arrivals, complete instances with no live token
+// and no pending arrival, and reset this step's per-key scratch
+__global__ void k_finish_instances(ZtTables tb, ZtState st, ZtScratch sc, int mode,
+                                   int cfg, int32_t* row) {
+  if (!sc.ctl[CTL_GO]) return;
+  const int E = tb.E, FO = tb.FO;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = i < st.I;
+  int newly = 0;
+  if (in) {
+    unsigned pending = 0;
+    for (int e = 0; e < E; ++e) {
+      const int64_t k = (int64_t)i * E + e;
+      unsigned jc = (unsigned)st.join_counts[k];
+      if (cfg & CFG_JOINS) {
+        jc += (unsigned)sc.arrivals[k] - (unsigned)sc.consumed[k];
+        st.join_counts[k] = (int)jc;
+        sc.arrivals[k] = 0;
+        sc.consumed[k] = 0;
+        sc.head[k] = -1;
+      }
+      pending += jc;
+      if (cfg & (CFG_SCOPES | CFG_MI)) sc.occ[k] = 0;  // recounted by k_occupancy
+    }
+    const int n = sc.tpi[i];
+    sc.tpi[i] = 0;
+    if (!st.done[i] && n == 0 && pending == 0) {
+      st.done[i] = 1;
+      newly = 1;
+      if ((mode & MODE_EMIT) && i < st.T) row[(int64_t)i * (2 + FO)] |= 16;
+    }
+  }
+  warp_add(st.completed, newly);
+  warp_add(st.transitions, 2 * newly);
+}
+
+// run_collect's post-step active count (needs the recounted occ/pend)
+__global__ void k_active(ZtTables tb, ZtState st, ZtScratch sc, int cfg) {
+  if (!sc.ctl[CTL_GO]) return;
+  const int E = tb.E;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  int a = 0;
+  if (t < st.T) {
+    const int e = st.elem[t];
+    const int ph = st.phase[t];
+    const bool live = e >= 0;
+    a = (live && (ph == PHASE_AT || ph == PHASE_DONE)) ? 1 : 0;
+    if (cfg & (CFG_SCOPES | CFG_MI)) {
+      const int e0 = e < 0 ? 0 : e;
+      const int i = st.inst[t];
+      const int d = st.def_of[i];
+      const int64_t de = (int64_t)d * E + e0;
+      const int64_t ie = (int64_t)i * E + e0;
+      const int op = live ? tb.kernel_op[de] : K_NONE;
+      const bool drained_here = sc.occ[ie] == 0 && sc.pend[ie] == 0;
+      bool scope_like = op == K_SCOPE;
+      if (cfg & CFG_MI) scope_like = scope_like || (op == K_MI && st.mi_left[ie] == 0);
+      a += (live && scope_like && ph == PHASE_WAIT && drained_here) ? 1 : 0;
+      if (cfg & CFG_MI) {
+        const bool seq = tb.mi_sequential[de] > 0;
+        a += (live && op == K_MI && ph == PHASE_WAIT && st.mi_left[ie] > 0 &&
+              (!seq || drained_here)) ? 1 : 0;
+      }
+    }
+  }
+  warp_add(&sc.ctl[CTL_ACTIVE], a);
+}
+
+// one thread: close the step (row tail, loop flag, per-step scalars)
+__global__ void k_end_step(ZtState st, ZtScratch sc, int FO, int mode, int32_t* row) {
+  if (!sc.ctl[CTL_GO]) return;
+  if (mode & MODE_EMIT) {
+    const int64_t tail = (int64_t)st.T * (2 + FO);
+    row[tail] = sc.ctl[CTL_ACTIVE];
+    row[tail + 1] = *st.overflow ? 1 : 0;
+  }
+  if (mode & MODE_COLLECT) sc.ctl[CTL_GO] = sc.ctl[CTL_ACTIVE] > 0 ? 1 : 0;
+  if (mode & MODE_COMPLETION) {
+    sc.ctl[CTL_STEPS] += 1;
+    sc.ctl[CTL_GO] = sc.ctl[CTL_ANY_LIVE] ? 1 : 0;
+  }
+  sc.ctl[CTL_ACTIVE] = 0;
+  sc.ctl[CTL_ANY_LIVE] = 0;
+}
+
+inline unsigned grid_for(int64_t n, int block) {
+  const int64_t g = (n + block - 1) / block;
+  return (unsigned)(g < 1 ? 1 : g);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Copy the caller's state into the working state, initialize the scratch,
+// zero the packed output, and (scopes/MI) count the start-of-run occupancy.
+int zt_prepare(const ZtTables* tb, const ZtState* in, const ZtState* st,
+               const ZtScratch* sc, int mode, int cfg, int32_t* out, int64_t out_len,
+               void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t IE = (int64_t)st->I * tb->E;
+  int64_t n = st->T;
+  if (IE > n) n = IE;
+  if (out_len > n) n = out_len;
+  unsigned g = grid_for(n, BLOCK);
+  if (g > 4096) g = 4096;
+  k_prepare<<<g, BLOCK, 0, s>>>(*in, *st, *sc, (int)IE, mode, out, out_len);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (mode & MODE_COMPLETION) {
+    k_any_live<<<grid_for(st->T, BLOCK), BLOCK, 0, s>>>(*st, *sc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (cfg & (CFG_SCOPES | CFG_MI)) {
+    k_occupancy<<<grid_for(IE > st->T ? IE : st->T, BLOCK), BLOCK, 0, s>>>(*tb, *st, *sc);
+    err = cudaGetLastError();
+  }
+  return (int)err;
+}
+
+// Enqueue n_steps lock-steps on the working state. With out != null, step k
+// writes packed row (row0 + k) of row_len ints.
+int zt_steps(const ZtTables* tb, const ZtState* st, const ZtScratch* sc, int n_steps,
+             int mode, int cfg, int32_t* out, int64_t row0, int64_t row_len,
+             int nb_free, int nb_req, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t T = st->T, R = (int64_t)st->T * tb->FO, IE = (int64_t)st->I * tb->E;
+  const int64_t occ_n = T > IE ? T : IE;
+  const int nb = nb_free > nb_req ? nb_free : nb_req;
+  cudaError_t err;
+#define ZT_CHECK()                      \
+  err = cudaGetLastError();             \
+  if (err != cudaSuccess) return (int)err
+  for (int k = 0; k < n_steps; ++k) {
+    int32_t* row = out ? out + (row0 + k) * row_len : nullptr;
+    k_classify<<<grid_for(T, BLOCK), BLOCK, 0, s>>>(*tb, *st, *sc, mode, cfg, row);
+    ZT_CHECK();
+    if (cfg & CFG_JOINS) {
+      k_join_rank<<<grid_for(R, BLOCK), BLOCK, 0, s>>>(*tb, *st, *sc);
+      ZT_CHECK();
+    }
+    k_scan_sums<<<dim3(nb, 2), SCAN_THREADS, 0, s>>>(*st, *sc, tb->FO, nb_free, nb_req);
+    ZT_CHECK();
+    k_scan_blocks<<<1, SCAN_THREADS, 0, s>>>(*sc, nb_free, nb_req);
+    ZT_CHECK();
+    k_scan_write<<<dim3(nb, 2), SCAN_THREADS, 0, s>>>(*st, *sc, tb->FO, nb_free, nb_req);
+    ZT_CHECK();
+    k_place<<<grid_for(R, BLOCK), BLOCK, 0, s>>>(*tb, *st, *sc, mode, cfg, row);
+    ZT_CHECK();
+    k_finish_instances<<<grid_for(st->I, BLOCK), BLOCK, 0, s>>>(*tb, *st, *sc, mode, cfg, row);
+    ZT_CHECK();
+    if (cfg & (CFG_SCOPES | CFG_MI)) {
+      k_occupancy<<<grid_for(occ_n, BLOCK), BLOCK, 0, s>>>(*tb, *st, *sc);
+      ZT_CHECK();
+    }
+    if (mode & MODE_COLLECT) {
+      k_active<<<grid_for(T, BLOCK), BLOCK, 0, s>>>(*tb, *st, *sc, cfg);
+      ZT_CHECK();
+    }
+    k_end_step<<<1, 1, 0, s>>>(*st, *sc, tb->FO, mode, row);
+    ZT_CHECK();
+  }
+#undef ZT_CHECK
+  return 0;
+}
+
+int zt_scan_tile() { return SCAN_TILE; }
+
+}  // extern "C"
