@@ -21,7 +21,10 @@ from zeebe_tpu_torch.models.bpmn import Bpmn, transform
 from zeebe_tpu_torch.ops import automaton as A
 from zeebe_tpu_torch.ops import kernels
 from zeebe_tpu_torch.ops.tables import K_TASK, KernelConfig, compile_tables
+from zeebe_tpu_torch.parallel import mesh as M
+from zeebe_tpu_torch.parallel import mesh_runner as MR
 from zeebe_tpu_torch.testing import workloads as W
+from zeebe_tpu_torch.testing.catalog import ProcessCatalog
 
 pytestmark = pytest.mark.cuda
 
@@ -238,13 +241,15 @@ def test_launch_counts(cuda):
     tables, dt, state = _setup("one_task", 64, None, seed=0, device=cuda)
     A.reset_launch_counts()
     A.run_collect(dt, state, n_steps=8, config=tables.kernel_config)
-    assert A.launch_counts() == {"step": 8, "run_collect": 1, "run_to_completion": 0}
+    assert A.launch_counts() == {"step": 8, "run_collect": 1, "run_to_completion": 0,
+                                 "sharded_step": 0, "sharded_collect": 0}
     # one_task quiesces within the first block of steps: the host stops there
     A.run_to_completion(dt, state, max_steps=64, config=tables.kernel_config)
     A.run_collect_plain(dt, state, n_steps=8, config=tables.kernel_config)
     A.step_plain(dt, state, config=tables.kernel_config)
     assert A.launch_counts() == {"step": 8 + kernels.COMPLETION_BLOCK_STEPS,
-                                 "run_collect": 1, "run_to_completion": 1}
+                                 "run_collect": 1, "run_to_completion": 1,
+                                 "sharded_step": 0, "sharded_collect": 0}
 
 
 @pytest.mark.parametrize("name", ["one_task", "fork_join", "mixed"])
@@ -262,3 +267,172 @@ def test_kernels_leave_input_state_unchanged(cuda, name):
                "def_of": False, "var_slots": False, "elem": True}
     for k, w in written.items():
         assert (new[k].data_ptr() != state[k].data_ptr()) == w, k
+
+
+# ---------------------------------------------------------------------------
+# the sharded kernels: all shards in one launch per phase
+
+
+def _shard_requests(registry, dt, n_shards: int) -> list:
+    """Up to n_shards partition groups (at most 5) over [one_task,
+    fork_join, exclusive_chain, mixed]: one quiesces in its first chunk
+    (and is padded from the small bucket), one runs on, one overflows, the
+    rest are mixed groups; padding shards fill the mesh."""
+    kinds = [(0, 40, False), (2, 100, False), (1, 128, True), (3, 100, False),
+             (3, 60, False)]
+    out = []
+    rng = np.random.default_rng(4)
+    for d, n, overflow in kinds[:min(n_shards, len(kinds))]:
+        insts = []
+        for idx in range(n):
+            definition = d if d < 3 else int(rng.integers(3, registry.tables.num_definitions))
+            x = A.pack_slot_values(np.float64(rng.integers(0, 60))).tolist()
+            insts.append(kb.GroupInstance(idx=idx, definition=definition, slots={"x": x}))
+        arrays, I, T = kb.build_group_arrays(registry.tables, insts, 128)
+        if overflow:
+            # the free slots hold stalled tokens (the bucket is the largest,
+            # so the dispatch adds none): the forks find no room
+            arrays["elem"][n:] = int(registry.tables.start_elem[d])
+            arrays["phase"][n:] = A.PHASE_STALLED
+        out.append(MR.GroupRequest(dt, registry.tables.kernel_config,
+                                   registry.tables_fingerprint, arrays, I, T, 64, 8))
+    return out
+
+
+def _shard_registry():
+    registry = kb.KernelRegistry()
+    ProcessCatalog.from_xml([W.to_xml([W.one_task(), W.fork_join(), W.exclusive_chain()]
+                                      + W.mixed_definitions())]).register(registry)
+    return registry
+
+
+@pytest.mark.parametrize("n_shards", [1, 3, 8])
+def test_sharded_collect_matches_plain(cuda, n_shards):
+    registry = _shard_registry()
+    dt = registry.device_tables_for(cuda)
+    config = registry.tables.kernel_config
+    requests = _shard_requests(registry, dt, n_shards)
+    host, I, T = MR.stack_requests(requests, n_shards)
+    state = M.shard_state(host, M.make_mesh(n_shards, cuda))
+    row_len = T * (2 + dt.out_target.shape[2]) + 2
+    ks = ps = state
+    for chunk in range(10):
+        ks, krows = kernels.run_steps(dt, ks, 8, config, auto_jobs=False, emit_events=True,
+                                      mode="collect", num_shards=n_shards, sharded=True)
+        ps, prows = MR.sharded_collect_plain(dt, ps, 8, n_shards, config)
+        assert torch.equal(krows.cpu(), prows.cpu())
+        _assert_state_equal(ks, ps)
+        if chunk == 0:
+            # shard 0 quiesces in its first chunk, shard 1 runs on
+            quiet = [bool((krows[:, s * row_len + row_len - 2] == 0).any())
+                     for s in range(n_shards)]
+            assert quiet[0] and (n_shards == 1 or not quiet[1])
+        waiting = []
+        for s in range(n_shards):
+            local = {k: ks[k].chunk(n_shards)[s] for k in ("phase", "elem", "inst", "def_of")}
+            waiting += (s * T + _waiting(registry.tables.kernel_op, local)).tolist()
+        if waiting:
+            ks, ps = A.complete_jobs(ks, waiting), A.complete_jobs(ps, waiting)
+    overflow = ks["overflow"].cpu().tolist()
+    if n_shards >= 3:
+        assert overflow[:3] == [False, False, True]  # only the stalled pool overflowed
+
+
+def test_sharded_collect_with_one_shard_is_run_collect(cuda):
+    """NS = 1: the sharded kernels compute slice 1's run_collect exactly."""
+    tables, dt, state = _setup("mixed", 2048, None, seed=9, device=cuda)
+    config = tables.kernel_config
+    one = dict(state)
+    for k in ("transitions", "jobs_created", "completed", "overflow"):
+        one[k] = state[k].reshape(1)
+    ks, krows = A.run_collect(dt, state, n_steps=8, config=config)
+    ss, srows = kernels.run_steps(dt, one, 8, config, auto_jobs=False, emit_events=True,
+                                  mode="collect", num_shards=1, sharded=True)
+    assert torch.equal(krows.cpu(), srows.cpu())
+    _assert_state_equal(ks, {k: (v.reshape(()) if v.shape == (1,) else v)
+                             for k, v in ss.items()})
+
+
+def _sharded_state(n_shards: int, device, overflow_shard: bool):
+    tables = compile_tables([transform(m) for m in [W.one_task(), W.fork_join()]
+                             + W.mixed_definitions()])
+    I_l = 64
+    rng = np.random.default_rng(n_shards)
+    def_of = rng.integers(0, tables.num_definitions, I_l * n_shards).astype(np.int32)
+    T_l = kb._pow2(tables.token_width * I_l)
+    if overflow_shard:
+        def_of[:I_l] = 1  # shard 0: fork_join only
+    slots = rng.integers(-5, 60, (I_l * n_shards, tables.num_slots)).astype(np.float64)
+    state = A.make_state(tables, I_l * n_shards, def_of, initial_slots=slots,
+                         token_capacity=T_l * n_shards, num_shards=n_shards, device=device)
+    if overflow_shard:
+        # shard 0's free slots hold stalled tokens: its forks find no room for
+        # their second branch, while the other shards' pools stay free
+        state["elem"][I_l:T_l] = int(tables.start_elem[1])
+        state["phase"][I_l:T_l] = A.PHASE_STALLED
+    return tables, A.DeviceTables.from_numpy(tables, device), state
+
+
+@pytest.mark.parametrize("overflow_shard", [False, True])
+@pytest.mark.parametrize("n_shards", [1, 3, 8])
+def test_sharded_step_matches_plain(cuda, n_shards, overflow_shard):
+    tables, dt, state = _sharded_state(n_shards, cuda, overflow_shard)
+    mesh = M.make_mesh(n_shards, cuda)
+    step = M.make_sharded_step(mesh, auto_jobs=True, config=tables.kernel_config)
+    ks = ps = state
+    for _ in range(10):
+        ks = step(dt, ks)
+        ps = M.sharded_step_plain(dt, ps, n_shards, True, tables.kernel_config)
+        _assert_state_equal(ks, ps)
+    assert bool(ks["overflow"]) == overflow_shard
+    if n_shards == 1:
+        single, _ = A.run_to_completion(dt, state, max_steps=10, config=tables.kernel_config)
+        assert int(single["transitions"]) == int(ks["transitions"])
+
+
+def test_sharded_launch_counts(cuda):
+    registry = _shard_registry()
+    dt = registry.device_tables_for(cuda)
+    runner = MR.MeshKernelRunner(mesh=M.make_mesh(3, cuda))
+    A.reset_launch_counts()
+    runner.run_groups(_shard_requests(registry, dt, 3))
+    counts = A.launch_counts()
+    assert counts["sharded_collect"] >= 1 and counts["sharded_step"] == 8 * counts["sharded_collect"]
+    assert counts["step"] == counts["run_collect"] == 0
+
+
+def test_mesh_runner_on_card_matches_cpu(cuda):
+    registry = _shard_registry()
+    results = {}
+    for dev in (cuda, torch.device("cpu")):
+        runner = MR.MeshKernelRunner(mesh=M.make_mesh(8, dev))
+        results[dev.type] = runner.run_groups(
+            _shard_requests(registry, registry.device_tables_for(dev), 8))
+    for g, c in zip(results["cuda"], results["cpu"]):
+        assert (g.overflow, g.quiesced, len(g.steps)) == (c.overflow, c.quiesced, len(c.steps))
+        for a, b in zip(g.steps, c.steps):
+            assert all(np.array_equal(a[k], b[k]) for k in a)
+        assert all(np.array_equal(g.state[k], c.state[k]) for k in g.state)
+
+
+def test_drive_groups_on_mesh_matches_drive_group(cuda):
+    xml = W.to_xml(W.mixed_definitions())
+    rng = np.random.default_rng(6)
+    partitions = []
+    for _ in range(3):
+        registry = kb.KernelRegistry()
+        ProcessCatalog.from_xml([xml]).register(registry)
+        insts = [kb.GroupInstance(
+            idx=i, definition=int(rng.integers(0, 8)),
+            slots={"x": A.pack_slot_values(np.float64(rng.integers(0, 60))).tolist()})
+            for i in range(200)]
+        partitions.append((registry, insts))
+    runner = MR.MeshKernelRunner(mesh=M.make_mesh(4, cuda), batch_window_s=0.05)
+    results = kb.drive_groups_on_mesh(
+        runner, [(r, [kb.GroupInstance(**vars(i)) for i in g]) for r, g in partitions])
+    assert runner.coalesced_dispatches > 0
+    for (registry, insts), result in zip(partitions, results):
+        solo = kb.drive_group(registry.tables, registry.device_tables_for(cuda),
+                              [kb.GroupInstance(**vars(i)) for i in insts], device=cuda)
+        assert result.waves == solo.waves
+        _assert_state_equal({k: v.cpu() for k, v in solo.state.items()}, result.state)

@@ -10,6 +10,7 @@ series-parallel processes (the randomized parity suite's generator).
 from __future__ import annotations
 
 import random
+import re
 from pathlib import Path
 
 import numpy as np
@@ -169,13 +170,20 @@ def test_enums_match_reference():
 
 COPIED = ("feel/temporal.py", "feel/feel.py", "feel/__init__.py", "models/bpmn/model.py",
           "models/bpmn/executable.py", "models/bpmn/xml_io.py", "models/bpmn/__init__.py",
-          "ops/tables.py")
+          "ops/tables.py", "engine/eligibility.py", "utils/metrics.py")
+
+
+def as_copied(ref: str) -> str:
+    """The reference's text as the port copies it: the package name in its
+    imports renamed, and the reference's "(ISSUE n)" history tags left out
+    of comments and docstrings."""
+    return re.sub(r" ?\(ISSUE \d+\)", "", ref.replace("zeebe_tpu.", "zeebe_tpu_torch."))
 
 
 @pytest.mark.parametrize("path", COPIED)
 def test_copied_module_unchanged(path):
     """The JAX-free modules are copies: identical to the reference's but for
-    the package name in their imports."""
+    the package name in their imports (and the history tags, ``as_copied``)."""
     ref = (REPO / "zeebe_tpu" / path).read_text()
     port = (REPO / "zeebe_tpu_torch" / path).read_text()
-    assert port == ref.replace("zeebe_tpu.", "zeebe_tpu_torch.")
+    assert port == as_copied(ref)

@@ -8,6 +8,26 @@
 //     an early exit, one packed int32 event row per step.
 //   - run_to_completion (:773): steps with auto jobs and no events until no
 //     token is live.
+//   - zeebe_tpu/parallel/mesh.py::make_sharded_step (:102): one step of NS
+//     independent shard blocks; the counters come back as the input plus
+//     the sum of the shards' deltas (int32, wrapping), overflow as the OR of
+//     the shards' flags.
+//   - zeebe_tpu/parallel/mesh_runner.py::MeshKernelRunner._sharded_collect
+//     (:233): run_collect of NS shard blocks, each leaving the chunk on its
+//     own quiescence, with per-shard counters and packed rows
+//     [n_steps, NS * row_len], shard s at columns [s*row_len, (s+1)*row_len).
+//
+// The shard axis. The reference puts one shard on each device of a mesh;
+// here all NS shard blocks live on one card and every phase is ONE launch
+// over all of them: blockIdx.y (blockIdx.z for the scan, blockIdx.x for the
+// per-shard control kernels) is the shard. A host loop of per-shard launches
+// would multiply the ~10 launches of a step by NS, and at the serving
+// geometry launches, not bytes, bound the step. Every per-instance access
+// uses the global row shard * I + inst (token inst values are local to their
+// shard block, as under shard_map); the free-slot and request prefix sums
+// restart at each shard (tiles never straddle a shard); the control words
+// (go, active, any live, scan totals) and the counters are per shard. With
+// NS = 1 every kernel computes exactly what it did before the shard axis.
 //
 // What bounds them on an H100: a step must read once the tables and state
 // arrays its KernelConfig uses, and write once those it changes
@@ -16,17 +36,22 @@
 // (the mixed set: I = 2048 instances, T = 8192 token slots, E = 13, FO = 3;
 // joins and conditions) that is 448,282 bytes, 0.13 us at 3.35 TB/s; at the
 // kernel-ceiling geometry (one_task, I = T = 1<<20, no flag set) 50,331,738
-// bytes, 15 us (chip_smoke.py computes and prints both). The
-// step is a chain of dependent grid-wide phases (classify, rank joins,
-// prefix-sum the free and placed slots, scatter, complete instances, recount
-// scopes), ~10 launches, so at the serving geometry launch latency and the
-// host's per-call work bound it, not bytes.
+// bytes, 15 us. A sharded call moves the sum over its shards of the same
+// state arrays, with the tables read once: at the mesh slice's geometry
+// (8 shards of the serving geometry) 3,545,040 bytes per lock-step, 1.06 us,
+// and 14,031,312 bytes per chunk of 8 with its packed rows, 4.19 us
+// (chip_smoke.py computes and prints every bound). The step is a chain of
+// dependent grid-wide phases (classify, rank joins, prefix-sum the free and
+// placed slots, scatter, complete instances, recount scopes), ~10 launches,
+// so at the serving geometry launch latency and the host's per-call work
+// bound it, not bytes.
 //
 // What the design does about it (a simple design that is right first):
-//   - every phase is one grid-wide launch on the caller's stream; all launches
-//     of a chunk are enqueued back to back and the host never synchronizes
-//     inside a chunk. The run_collect early exit is a device flag (ctl[GO])
-//     that every launch reads first, returning at once when it is 0;
+//   - every phase is one grid-wide launch on the caller's stream, over all
+//     shards; all launches of a chunk are enqueued back to back and the host
+//     never synchronizes inside a chunk. The run_collect early exit is a
+//     per-shard device flag (go) that every block reads first, returning at
+//     once when its shard's flag is 0;
 //   - kernels allocate nothing: the wrapper hands in the state (updated in
 //     place, after one copy from the caller's state so the API stays
 //     functional) and one int32 scratch buffer; arrays the config never
@@ -34,7 +59,8 @@
 //   - join ranks need no sort: each join request links itself into a per-key
 //     list (atomicExch on the key's head) and then counts the list entries
 //     with a lower flat index — the rank the reference's stable argsort
-//     gives, independent of the list's order;
+//     gives, independent of the list's order. Keys are global rows, so two
+//     shards' arrivals never share a list;
 //   - integer atomics only where the order cannot show (sums of int32 wrap
 //     mod 2^32 in any order), so every output is bit-exact and deterministic.
 // Fusing launches, CUDA graphs and shared-memory tiles are later work.
@@ -59,9 +85,9 @@ constexpr int MAX_PROG_LEN = 24, STACK_DEPTH = 8;
 constexpr int CFG_JOINS = 1, CFG_CONDITIONS = 2, CFG_SCOPES = 4, CFG_MI = 8;
 // run modes
 constexpr int MODE_AUTO_JOBS = 1, MODE_EMIT = 2, MODE_COLLECT = 4, MODE_COMPLETION = 8;
-// ctl slots
+// ctl slots, CTL_N per shard
 constexpr int CTL_GO = 0, CTL_ACTIVE = 1, CTL_ANY_LIVE = 2, CTL_STEPS = 3,
-              CTL_FREE_TOTAL = 4, CTL_REQ_TOTAL = 5;
+              CTL_FREE_TOTAL = 4, CTL_REQ_TOTAL = 5, CTL_N = 8;
 // tok_flags bits
 constexpr int TF_COMPLETING = 1, TF_SPAWNED = 2;
 // req_flags bits
@@ -91,42 +117,45 @@ struct ZtTables {
   int32_t D, E, FO, C;
 };
 
+// NS shard blocks of T token slots and I instances each; the arrays hold
+// the blocks back to back, and token inst values are local to their block.
 struct ZtState {
-  int32_t* elem;          // [T]
-  int32_t* phase;         // [T]
-  int32_t* inst;          // [T]
-  const int32_t* def_of;  // [I]
-  const int32_t* var_slots;  // [I, S, 2]
-  int32_t* join_counts;   // [I, E]
-  int32_t* mi_left;       // [I, E]
-  uint8_t* done;          // [I] bool
-  uint8_t* incident;      // [I] bool
-  int32_t* transitions;   // scalar
-  int32_t* jobs_created;  // scalar
-  int32_t* completed;     // scalar
-  uint8_t* overflow;      // scalar bool
-  int32_t T, I, S;
+  int32_t* elem;          // [NS*T]
+  int32_t* phase;         // [NS*T]
+  int32_t* inst;          // [NS*T]
+  const int32_t* def_of;  // [NS*I]
+  const int32_t* var_slots;  // [NS*I, S, 2]
+  int32_t* join_counts;   // [NS*I, E]
+  int32_t* mi_left;       // [NS*I, E]
+  uint8_t* done;          // [NS*I] bool
+  uint8_t* incident;      // [NS*I] bool
+  int32_t* transitions;   // one per shard (stride ctr_stride)
+  int32_t* jobs_created;  // one per shard
+  int32_t* completed;     // one per shard
+  uint8_t* overflow;      // one per shard, bool
+  int32_t T, I, S, NS;
+  int32_t ctr_stride;     // 1: a counter per shard; 0: one counter for all
 };
 
 struct ZtScratch {
-  int32_t* ctl;           // [8]
-  int32_t* occ;           // [I*E] live tokens inside each scope
-  int32_t* pend;          // [I*E] unconsumed join arrivals inside each scope
-  int32_t* arrivals;      // [I*E] join arrivals this step
-  int32_t* consumed;      // [I*E] join arrivals consumed this step
-  int32_t* head;          // [I*E] last join request of the key (-1 none)
-  int32_t* tpi;           // [I]   live tokens per instance after the step
-  int32_t* req_target;    // [T*FO]
-  int32_t* req_flags;     // [T*FO]
-  int32_t* next;          // [T*FO] join request list links
-  int32_t* proceeds;      // [T*FO] 0/1
-  int32_t* place_rank;    // [T*FO]
-  int32_t* free_flag;     // [T] 0/1
-  int32_t* tok_flags;     // [T]
-  int32_t* tok_inst;      // [T] start-of-step inst
-  int32_t* tok_elem;      // [T] start-of-step elem
-  int32_t* slot_of_rank;  // [T]
-  int32_t* block_sums;    // [nb_free + nb_req]
+  int32_t* ctl;           // [NS*CTL_N]
+  int32_t* occ;           // [NS*I*E] live tokens inside each scope
+  int32_t* pend;          // [NS*I*E] unconsumed join arrivals inside each scope
+  int32_t* arrivals;      // [NS*I*E] join arrivals this step
+  int32_t* consumed;      // [NS*I*E] join arrivals consumed this step
+  int32_t* head;          // [NS*I*E] last join request of the key (-1 none)
+  int32_t* tpi;           // [NS*I]   live tokens per instance after the step
+  int32_t* req_target;    // [NS*T*FO]
+  int32_t* req_flags;     // [NS*T*FO]
+  int32_t* next;          // [NS*T*FO] join request list links
+  int32_t* proceeds;      // [NS*T*FO] 0/1
+  int32_t* place_rank;    // [NS*T*FO] rank within the shard
+  int32_t* free_flag;     // [NS*T] 0/1
+  int32_t* tok_flags;     // [NS*T]
+  int32_t* tok_inst;      // [NS*T] start-of-step inst (local to the shard)
+  int32_t* tok_elem;      // [NS*T] start-of-step elem
+  int32_t* slot_of_rank;  // [NS*T] local slot of each free rank
+  int32_t* block_sums;    // [NS*(nb_free + nb_req)]
 };
 
 }  // extern "C"
@@ -137,7 +166,8 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// Every lane of the warp must call these (no divergent early return).
+// Every lane of the warp must call these (no divergent early return). A
+// warp never spans two shards: each block works on one shard.
 __device__ __forceinline__ void warp_add(int32_t* dst, int v) {
   int s = __reduce_add_sync(0xffffffffu, v);
   if ((threadIdx.x & 31) == 0 && s != 0) atomicAdd(dst, s);
@@ -145,6 +175,11 @@ __device__ __forceinline__ void warp_add(int32_t* dst, int v) {
 
 __device__ __forceinline__ void warp_flag(int32_t* dst, bool v) {
   if (__any_sync(0xffffffffu, v) && (threadIdx.x & 31) == 0) *dst = 1;
+}
+
+// the packed row of shard s for this step (row_len = T*(2+FO) + 2 ints)
+__device__ __forceinline__ int32_t* shard_row(int32_t* row, int s, int T, int FO) {
+  return row ? row + (int64_t)s * ((int64_t)T * (2 + FO) + 2) : nullptr;
 }
 
 // One condition program against one instance's slots (reference
@@ -210,11 +245,12 @@ __device__ bool eval_program(const int32_t* ops, const int32_t* args,
   return stk[2 * clampi(sp - 1, 0, STACK_DEPTH - 1)] > 0;
 }
 
-__global__ void k_prepare(ZtState in, ZtState st, ZtScratch sc, int IE, int mode,
+__global__ void k_prepare(ZtState in, ZtState st, ZtScratch sc, int64_t NIE, int mode,
                           int32_t* out, int64_t out_len) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t x0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  for (int64_t x = x0; x < st.T; x += stride) {
+  const int64_t NT = (int64_t)st.NS * st.T, NI = (int64_t)st.NS * st.I;
+  for (int64_t x = x0; x < NT; x += stride) {
     st.elem[x] = in.elem[x];
     st.phase[x] = in.phase[x];
     st.inst[x] = in.inst[x];
@@ -223,7 +259,7 @@ __global__ void k_prepare(ZtState in, ZtState st, ZtScratch sc, int IE, int mode
   // when the config never writes them: nothing to copy then
   const bool copy_joins = st.join_counts != in.join_counts;
   const bool copy_mi = st.mi_left != in.mi_left;
-  for (int64_t x = x0; x < IE; x += stride) {
+  for (int64_t x = x0; x < NIE; x += stride) {
     if (copy_joins) st.join_counts[x] = in.join_counts[x];
     if (copy_mi) st.mi_left[x] = in.mi_left[x];
     sc.occ[x] = 0;
@@ -232,7 +268,7 @@ __global__ void k_prepare(ZtState in, ZtState st, ZtScratch sc, int IE, int mode
     sc.consumed[x] = 0;
     sc.head[x] = -1;
   }
-  for (int64_t x = x0; x < st.I; x += stride) {
+  for (int64_t x = x0; x < NI; x += stride) {
     st.done[x] = in.done[x];
     st.incident[x] = in.incident[x];
     sc.tpi[x] = 0;
@@ -240,71 +276,86 @@ __global__ void k_prepare(ZtState in, ZtState st, ZtScratch sc, int IE, int mode
   if (out != nullptr) {
     for (int64_t x = x0; x < out_len; x += stride) out[x] = 0;
   }
-  if (x0 == 0) {
-    *st.transitions = *in.transitions;
-    *st.jobs_created = *in.jobs_created;
-    *st.completed = *in.completed;
-    *st.overflow = *in.overflow;
-    for (int k = 0; k < 8; ++k) sc.ctl[k] = 0;
+  for (int64_t s = x0; s < st.NS; s += stride) {
+    // a replicated input counter (ctr_stride 0) starts every shard
+    const int64_t c = s * in.ctr_stride;
+    st.transitions[s] = in.transitions[c];
+    st.jobs_created[s] = in.jobs_created[c];
+    st.completed[s] = in.completed[c];
+    st.overflow[s] = in.overflow[c];
+    int32_t* ctl = sc.ctl + s * CTL_N;
+    for (int k = 0; k < CTL_N; ++k) ctl[k] = 0;
     // run_to_completion's loop test runs before its first step (k_any_live)
-    sc.ctl[CTL_GO] = (mode & MODE_COMPLETION) ? 0 : 1;
+    ctl[CTL_GO] = (mode & MODE_COMPLETION) ? 0 : 1;
   }
 }
 
-// go = any token live (run_to_completion's loop condition, before step 1)
+// go = any token of the shard live (run_to_completion's loop condition,
+// before step 1)
 __global__ void k_any_live(ZtState st, ZtScratch sc) {
+  const int s = blockIdx.y;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  warp_flag(&sc.ctl[CTL_GO], t < st.T && st.elem[t] >= 0);
+  warp_flag(&sc.ctl[s * CTL_N + CTL_GO],
+            t < st.T && st.elem[(int64_t)s * st.T + t] >= 0);
 }
 
 // occ/pend for the current state. occ must be zero on entry (k_prepare, or
 // k_finish_instances of the step before).
 __global__ void k_occupancy(ZtTables tb, ZtState st, ZtScratch sc) {
-  if (!sc.ctl[CTL_GO]) return;
+  const int s = blockIdx.y;
+  if (!sc.ctl[s * CTL_N + CTL_GO]) return;
   const int E = tb.E;
+  const int64_t i0 = (int64_t)s * st.I;
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   if (x < st.T) {
-    const int e = st.elem[x];
+    const int64_t g = (int64_t)s * st.T + x;
+    const int e = st.elem[g];
     if (e >= 0) {
-      const int i = st.inst[x];
-      const int d = st.def_of[i];
+      const int64_t gi = i0 + st.inst[g];
+      const int d = st.def_of[gi];
       const int8_t* row = tb.in_scope + ((int64_t)d * E + e) * E;
-      for (int s = 0; s < E; ++s) {
-        if (row[s]) atomicAdd(&sc.occ[(int64_t)i * E + s], 1);
+      for (int c = 0; c < E; ++c) {
+        if (row[c]) atomicAdd(&sc.occ[gi * E + c], 1);
       }
     }
   }
   if (x < st.I * E) {
-    const int i = x / E, s = x % E;
-    const int d = st.def_of[i];
+    const int64_t gi = i0 + x / E;
+    const int c = x % E;
+    const int d = st.def_of[gi];
     unsigned sum = 0;
     for (int e = 0; e < E; ++e) {
-      sum += (unsigned)st.join_counts[(int64_t)i * E + e] *
-             (unsigned)tb.in_scope[((int64_t)d * E + e) * E + s];
+      sum += (unsigned)st.join_counts[gi * E + e] *
+             (unsigned)tb.in_scope[((int64_t)d * E + e) * E + c];
     }
-    sc.pend[x] = (int)sum;
+    sc.pend[gi * E + c] = (int)sum;
   }
 }
 
 // classify every token, run its gateway conditions, route, and emit its
 // placement requests (one thread per token)
 __global__ void k_classify(ZtTables tb, ZtState st, ZtScratch sc, int mode, int cfg,
-                           int32_t* row) {
-  if (!sc.ctl[CTL_GO]) return;
+                           int32_t* row0) {
+  const int s = blockIdx.y;
+  int32_t* ctl = sc.ctl + s * CTL_N;
+  if (!ctl[CTL_GO]) return;
   const int E = tb.E, FO = tb.FO;
+  int32_t* row = shard_row(row0, s, st.T, FO);
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in = t < st.T;
   int trans = 0, jobs = 0;
   bool keep_live = false;
   if (in) {
-    const int e = st.elem[t];
-    const int ph = st.phase[t];
-    const int i = st.inst[t];
+    const int64_t g = (int64_t)s * st.T + t;
+    const int e = st.elem[g];
+    const int ph = st.phase[g];
+    const int i = st.inst[g];
+    const int64_t gi = (int64_t)s * st.I + i;
     const bool live = e >= 0;
     const int e0 = e < 0 ? 0 : e;
-    const int d = st.def_of[i];
+    const int d = st.def_of[gi];
     const int64_t de = (int64_t)d * E + e0;
-    const int64_t ie = (int64_t)i * E + e0;
+    const int64_t ie = gi * E + e0;
     const int op = live ? tb.kernel_op[de] : K_NONE;
     const bool stalled = ph == PHASE_STALLED;
     const bool is_task = op == K_TASK;
@@ -340,7 +391,7 @@ __global__ void k_classify(ZtTables tb, ZtState st, ZtScratch sc, int mode, int 
     unsigned cond_true = 0;
     if ((cfg & CFG_CONDITIONS) && (is_excl || is_incl) && pass_attempt) {
       const int32_t* conds = tb.out_cond + de * FO;
-      const int32_t* slots = st.var_slots + (int64_t)i * st.S * 2;
+      const int32_t* slots = st.var_slots + gi * st.S * 2;
       for (int fo = 0; fo < FO; ++fo) {
         const int c = conds[fo];
         if (c >= 0 &&
@@ -369,14 +420,14 @@ __global__ void k_classify(ZtTables tb, ZtState st, ZtScratch sc, int mode, int 
     }
     const bool spawning = arriving_scope || arriving_mi || mi_spawn;
     for (int fo = 0; fo < FO; ++fo) {
-      const int64_t r = (int64_t)t * FO + fo;
+      const int64_t r = g * FO + fo;
       int rt = ((take >> fo) & 1u) ? targets[fo] : -1;
       if (fo == 0 && (cfg & (CFG_SCOPES | CFG_MI)) && spawning) rt = tb.scope_start[de];
       sc.req_target[r] = rt;
       int rf = ((take >> fo) & 1u) ? RF_TAKE : 0;
       bool proceeds = rt >= 0;
       if ((cfg & CFG_JOINS) && rt >= 0 && tb.kernel_op[(int64_t)d * E + rt] == K_JOIN) {
-        const int64_t key = (int64_t)i * E + rt;
+        const int64_t key = gi * E + rt;
         atomicAdd(&sc.arrivals[key], 1);
         sc.next[r] = atomicExch(&sc.head[key], (int)r);
         rf |= RF_JOIN;
@@ -387,19 +438,19 @@ __global__ void k_classify(ZtTables tb, ZtState st, ZtScratch sc, int mode, int 
     }
 
     if (arriving_task || arriving_scope || arriving_host || arriving_mi) {
-      st.phase[t] = PHASE_WAIT;
+      st.phase[g] = PHASE_WAIT;
     }
     if (no_match) {
-      st.phase[t] = PHASE_STALLED;
-      st.incident[i] = 1;
+      st.phase[g] = PHASE_STALLED;
+      st.incident[gi] = 1;
     }
     keep_live = live && !completing;
-    if (keep_live) atomicAdd(&sc.tpi[i], 1);
-    sc.tok_inst[t] = i;
-    sc.tok_elem[t] = e;
-    sc.tok_flags[t] = (completing ? TF_COMPLETING : 0) |
+    if (keep_live) atomicAdd(&sc.tpi[gi], 1);
+    sc.tok_inst[g] = i;
+    sc.tok_elem[g] = e;
+    sc.tok_flags[g] = (completing ? TF_COMPLETING : 0) |
                       (((cfg & CFG_MI) && (arriving_mi || mi_spawn)) ? TF_SPAWNED : 0);
-    sc.free_flag[t] = (!live || completing) ? 1 : 0;
+    sc.free_flag[g] = (!live || completing) ? 1 : 0;
 
     if (mode & MODE_EMIT) {
       const int task_arrive = arriving_task || arriving_scope || arriving_mi;
@@ -414,32 +465,35 @@ __global__ void k_classify(ZtTables tb, ZtState st, ZtScratch sc, int mode, int 
             ((waiting_done || scope_resume) ? 2 : 0) + __popc(take);
     jobs = (arriving_task && is_task) ? 1 : 0;
   }
-  warp_add(st.transitions, trans);
-  warp_add(st.jobs_created, jobs);
-  warp_flag(&sc.ctl[CTL_ANY_LIVE], keep_live);
+  warp_add(&st.transitions[s], trans);
+  warp_add(&st.jobs_created[s], jobs);
+  warp_flag(&ctl[CTL_ANY_LIVE], keep_live);
 }
 
 // rank each join request among the same (instance, join) key by flat index
 // and decide whether it fills the join (one thread per request)
 __global__ void k_join_rank(ZtTables tb, ZtState st, ZtScratch sc) {
-  if (!sc.ctl[CTL_GO]) return;
+  const int s = blockIdx.y;
+  if (!sc.ctl[s * CTL_N + CTL_GO]) return;
   const int E = tb.E, FO = tb.FO;
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= (int64_t)st.T * FO) return;
+  const int64_t n = (int64_t)st.T * FO;
+  const int64_t rl = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (rl >= n) return;
+  const int64_t r = (int64_t)s * n + rl;
   if (!(sc.req_flags[r] & RF_JOIN)) return;
-  const int i = sc.tok_inst[r / FO];
+  const int64_t gi = (int64_t)s * st.I + sc.tok_inst[r / FO];
   const int rt = sc.req_target[r];
-  const int64_t key = (int64_t)i * E + rt;
+  const int64_t key = gi * E + rt;
   const int c = sc.arrivals[key];
   unsigned rank = 0;
   if (c > 1) {
-    int n = sc.head[key];
-    for (int j = 0; j < c && n >= 0; ++j) {
-      if (n < r) ++rank;
-      n = sc.next[n];
+    int m = sc.head[key];
+    for (int j = 0; j < c && m >= 0; ++j) {
+      if (m < r) ++rank;
+      m = sc.next[m];
     }
   }
-  const int d = st.def_of[i];
+  const int d = st.def_of[gi];
   int arity = tb.in_count[(int64_t)d * E + rt];
   if (arity < 1) arity = 1;
   const int count_after = (int)((unsigned)st.join_counts[key] + rank + 1u);
@@ -481,30 +535,51 @@ __device__ int block_exclusive_scan(int v, int* total) {
   return excl;
 }
 
+// The scan's arrays for shard blockIdx.z: free_flag (grid.y 0) or proceeds
+// (grid.y 1), their length in the shard, and the shard's tile sums.
+struct ScanPart {
+  const int32_t* a;
+  int64_t n;
+  int32_t* sums;
+};
+
+__device__ __forceinline__ ScanPart scan_part(const ZtState& st, const ZtScratch& sc,
+                                              int FO, int nb_free, int nb_req) {
+  const int s = blockIdx.z;
+  const bool req = blockIdx.y == 1;
+  const int64_t n = req ? (int64_t)st.T * FO : st.T;
+  ScanPart p;
+  p.a = (req ? sc.proceeds : sc.free_flag) + (int64_t)s * n;
+  p.n = n;
+  p.sums = sc.block_sums + (int64_t)s * (nb_free + nb_req) + (req ? nb_free : 0);
+  return p;
+}
+
 // scan pass 1: tile sums of free_flag (grid.y 0) and proceeds (grid.y 1)
 __global__ void k_scan_sums(ZtState st, ZtScratch sc, int FO, int nb_free, int nb_req) {
-  if (!sc.ctl[CTL_GO]) return;
-  const bool req = blockIdx.y == 1;
-  const int nb = req ? nb_req : nb_free;
+  if (!sc.ctl[blockIdx.z * CTL_N + CTL_GO]) return;
+  const int nb = blockIdx.y == 1 ? nb_req : nb_free;
   if ((int)blockIdx.x >= nb) return;
-  const int32_t* a = req ? sc.proceeds : sc.free_flag;
-  const int64_t n = req ? (int64_t)st.T * FO : st.T;
+  const ScanPart p = scan_part(st, sc, FO, nb_free, nb_req);
   const int64_t base = (int64_t)blockIdx.x * SCAN_TILE + (int64_t)threadIdx.x * SCAN_ITEMS;
   int v = 0;
 #pragma unroll
   for (int k = 0; k < SCAN_ITEMS; ++k) {
-    if (base + k < n) v += a[base + k];
+    if (base + k < p.n) v += p.a[base + k];
   }
   int total;
   block_exclusive_scan(v, &total);
-  if (threadIdx.x == 0) sc.block_sums[(req ? nb_free : 0) + blockIdx.x] = total;
+  if (threadIdx.x == 0) p.sums[blockIdx.x] = total;
 }
 
-// scan pass 2 (one block): exclusive scan of the tile sums, and the totals
+// scan pass 2 (one block per shard): exclusive scan of the shard's tile
+// sums, and its totals
 __global__ void k_scan_blocks(ZtScratch sc, int nb_free, int nb_req) {
-  if (!sc.ctl[CTL_GO]) return;
+  const int s = blockIdx.x;
+  int32_t* ctl = sc.ctl + s * CTL_N;
+  if (!ctl[CTL_GO]) return;
   for (int which = 0; which < 2; ++which) {
-    int32_t* sums = sc.block_sums + (which ? nb_free : 0);
+    int32_t* sums = sc.block_sums + (int64_t)s * (nb_free + nb_req) + (which ? nb_free : 0);
     const int nb = which ? nb_req : nb_free;
     int carry = 0;
     for (int b0 = 0; b0 < nb; b0 += blockDim.x) {
@@ -515,68 +590,74 @@ __global__ void k_scan_blocks(ZtScratch sc, int nb_free, int nb_req) {
       if (b < nb) sums[b] = carry + excl;
       carry += total;
     }
-    if (threadIdx.x == 0) sc.ctl[which ? CTL_REQ_TOTAL : CTL_FREE_TOTAL] = carry;
+    if (threadIdx.x == 0) ctl[which ? CTL_REQ_TOTAL : CTL_FREE_TOTAL] = carry;
   }
 }
 
-// scan pass 3: ranks. free slots: slot_of_rank[free_rank] = t, and a
-// completing token's slot is freed (elem = -1); requests: place_rank.
+// scan pass 3: ranks within the shard. free slots: slot_of_rank[free_rank]
+// = local slot, and a completing token's slot is freed (elem = -1);
+// requests: place_rank.
 __global__ void k_scan_write(ZtState st, ZtScratch sc, int FO, int nb_free, int nb_req) {
-  if (!sc.ctl[CTL_GO]) return;
+  const int s = blockIdx.z;
+  if (!sc.ctl[s * CTL_N + CTL_GO]) return;
   const bool req = blockIdx.y == 1;
   const int nb = req ? nb_req : nb_free;
   if ((int)blockIdx.x >= nb) return;
-  const int32_t* a = req ? sc.proceeds : sc.free_flag;
-  const int64_t n = req ? (int64_t)st.T * FO : st.T;
+  const ScanPart p = scan_part(st, sc, FO, nb_free, nb_req);
+  const int64_t off = (int64_t)s * p.n;
   const int64_t base = (int64_t)blockIdx.x * SCAN_TILE + (int64_t)threadIdx.x * SCAN_ITEMS;
   int f[SCAN_ITEMS];
   int v = 0;
 #pragma unroll
   for (int k = 0; k < SCAN_ITEMS; ++k) {
-    f[k] = base + k < n ? a[base + k] : 0;
+    f[k] = base + k < p.n ? p.a[base + k] : 0;
     v += f[k];
   }
   int total;
-  int rank = block_exclusive_scan(v, &total) +
-             sc.block_sums[(req ? nb_free : 0) + blockIdx.x];
+  int rank = block_exclusive_scan(v, &total) + p.sums[blockIdx.x];
 #pragma unroll
   for (int k = 0; k < SCAN_ITEMS; ++k) {
     const int64_t x = base + k;
-    if (x < n && f[k]) {
+    if (x < p.n && f[k]) {
       if (req) {
-        sc.place_rank[x] = rank;
+        sc.place_rank[off + x] = rank;
       } else {
-        sc.slot_of_rank[rank] = (int)x;
-        if (sc.tok_flags[x] & TF_COMPLETING) st.elem[x] = -1;
+        sc.slot_of_rank[off + rank] = (int)x;
+        if (sc.tok_flags[off + x] & TF_COMPLETING) st.elem[off + x] = -1;
       }
       ++rank;
     }
   }
 }
 
-// scatter placement into the freed slots, write dest|take columns, and
-// spend one MI child per spawning body (one thread per request)
+// scatter placement into the shard's freed slots, write dest|take columns,
+// and spend one MI child per spawning body (one thread per request)
 __global__ void k_place(ZtTables tb, ZtState st, ZtScratch sc, int mode, int cfg,
-                        int32_t* row) {
-  if (!sc.ctl[CTL_GO]) return;
+                        int32_t* row0) {
+  const int s = blockIdx.y;
+  int32_t* ctl = sc.ctl + s * CTL_N;
+  if (!ctl[CTL_GO]) return;
   const int E = tb.E, FO = tb.FO;
-  const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = r < (int64_t)st.T * FO;
+  int32_t* row = shard_row(row0, s, st.T, FO);
+  const int64_t tok0 = (int64_t)s * st.T, i0 = (int64_t)s * st.I;
+  const int64_t rl = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = rl < (int64_t)st.T * FO;
   bool placed = false, ovf = false;
   if (in) {
-    const int64_t t = r / FO;
-    const int fo = (int)(r - t * FO);
+    const int64_t r = tok0 * FO + rl;
+    const int64_t t = rl / FO;
+    const int fo = (int)(rl - t * FO);
     int dest = st.T;
     if (sc.proceeds[r]) {
       const int pr = sc.place_rank[r];
-      if (pr < sc.ctl[CTL_FREE_TOTAL]) {
-        const int s = sc.slot_of_rank[pr];
-        const int i = sc.tok_inst[t];
-        st.elem[s] = sc.req_target[r];
-        st.inst[s] = i;
-        st.phase[s] = PHASE_AT;
-        atomicAdd(&sc.tpi[i], 1);
-        dest = s;
+      if (pr < ctl[CTL_FREE_TOTAL]) {
+        const int slot = sc.slot_of_rank[tok0 + pr];
+        const int i = sc.tok_inst[tok0 + t];
+        st.elem[tok0 + slot] = sc.req_target[r];
+        st.inst[tok0 + slot] = i;
+        st.phase[tok0 + slot] = PHASE_AT;
+        atomicAdd(&sc.tpi[i0 + i], 1);
+        dest = slot;
         placed = true;
       } else {
         ovf = true;
@@ -586,28 +667,31 @@ __global__ void k_place(ZtTables tb, ZtState st, ZtScratch sc, int mode, int cfg
       const unsigned take = (sc.req_flags[r] & RF_TAKE) ? 1u : 0u;
       row[t * (2 + FO) + 2 + fo] = (int)((unsigned)dest | (take << 16));
     }
-    if ((cfg & CFG_MI) && fo == 0 && (sc.tok_flags[t] & TF_SPAWNED)) {
-      const int e = sc.tok_elem[t];
-      atomicAdd(&st.mi_left[(int64_t)sc.tok_inst[t] * E + (e < 0 ? 0 : e)], -1);
+    if ((cfg & CFG_MI) && fo == 0 && (sc.tok_flags[tok0 + t] & TF_SPAWNED)) {
+      const int e = sc.tok_elem[tok0 + t];
+      atomicAdd(&st.mi_left[(i0 + sc.tok_inst[tok0 + t]) * E + (e < 0 ? 0 : e)], -1);
     }
   }
-  warp_flag(&sc.ctl[CTL_ANY_LIVE], placed);
-  if (__any_sync(0xffffffffu, ovf) && (threadIdx.x & 31) == 0) *st.overflow = 1;
+  warp_flag(&ctl[CTL_ANY_LIVE], placed);
+  if (__any_sync(0xffffffffu, ovf) && (threadIdx.x & 31) == 0) st.overflow[s] = 1;
 }
 
 // per instance: apply join arrivals, complete instances with no live token
 // and no pending arrival, and reset this step's per-key scratch
 __global__ void k_finish_instances(ZtTables tb, ZtState st, ZtScratch sc, int mode,
-                                   int cfg, int32_t* row) {
-  if (!sc.ctl[CTL_GO]) return;
+                                   int cfg, int32_t* row0) {
+  const int s = blockIdx.y;
+  if (!sc.ctl[s * CTL_N + CTL_GO]) return;
   const int E = tb.E, FO = tb.FO;
+  int32_t* row = shard_row(row0, s, st.T, FO);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in = i < st.I;
   int newly = 0;
   if (in) {
+    const int64_t gi = (int64_t)s * st.I + i;
     unsigned pending = 0;
     for (int e = 0; e < E; ++e) {
-      const int64_t k = (int64_t)i * E + e;
+      const int64_t k = gi * E + e;
       unsigned jc = (unsigned)st.join_counts[k];
       if (cfg & CFG_JOINS) {
         jc += (unsigned)sc.arrivals[k] - (unsigned)sc.consumed[k];
@@ -619,35 +703,38 @@ __global__ void k_finish_instances(ZtTables tb, ZtState st, ZtScratch sc, int mo
       pending += jc;
       if (cfg & (CFG_SCOPES | CFG_MI)) sc.occ[k] = 0;  // recounted by k_occupancy
     }
-    const int n = sc.tpi[i];
-    sc.tpi[i] = 0;
-    if (!st.done[i] && n == 0 && pending == 0) {
-      st.done[i] = 1;
+    const int n = sc.tpi[gi];
+    sc.tpi[gi] = 0;
+    if (!st.done[gi] && n == 0 && pending == 0) {
+      st.done[gi] = 1;
       newly = 1;
       if ((mode & MODE_EMIT) && i < st.T) row[(int64_t)i * (2 + FO)] |= 16;
     }
   }
-  warp_add(st.completed, newly);
-  warp_add(st.transitions, 2 * newly);
+  warp_add(&st.completed[s], newly);
+  warp_add(&st.transitions[s], 2 * newly);
 }
 
 // run_collect's post-step active count (needs the recounted occ/pend)
 __global__ void k_active(ZtTables tb, ZtState st, ZtScratch sc, int cfg) {
-  if (!sc.ctl[CTL_GO]) return;
+  const int s = blockIdx.y;
+  int32_t* ctl = sc.ctl + s * CTL_N;
+  if (!ctl[CTL_GO]) return;
   const int E = tb.E;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   int a = 0;
   if (t < st.T) {
-    const int e = st.elem[t];
-    const int ph = st.phase[t];
+    const int64_t g = (int64_t)s * st.T + t;
+    const int e = st.elem[g];
+    const int ph = st.phase[g];
     const bool live = e >= 0;
     a = (live && (ph == PHASE_AT || ph == PHASE_DONE)) ? 1 : 0;
     if (cfg & (CFG_SCOPES | CFG_MI)) {
       const int e0 = e < 0 ? 0 : e;
-      const int i = st.inst[t];
-      const int d = st.def_of[i];
+      const int64_t gi = (int64_t)s * st.I + st.inst[g];
+      const int d = st.def_of[gi];
       const int64_t de = (int64_t)d * E + e0;
-      const int64_t ie = (int64_t)i * E + e0;
+      const int64_t ie = gi * E + e0;
       const int op = live ? tb.kernel_op[de] : K_NONE;
       const bool drained_here = sc.occ[ie] == 0 && sc.pend[ie] == 0;
       bool scope_like = op == K_SCOPE;
@@ -660,24 +747,48 @@ __global__ void k_active(ZtTables tb, ZtState st, ZtScratch sc, int cfg) {
       }
     }
   }
-  warp_add(&sc.ctl[CTL_ACTIVE], a);
+  warp_add(&ctl[CTL_ACTIVE], a);
 }
 
-// one thread: close the step (row tail, loop flag, per-step scalars)
-__global__ void k_end_step(ZtState st, ZtScratch sc, int FO, int mode, int32_t* row) {
-  if (!sc.ctl[CTL_GO]) return;
+// one thread per shard: close the step (row tail, loop flag, per-step
+// scalars)
+__global__ void k_end_step(ZtState st, ZtScratch sc, int FO, int mode, int32_t* row0) {
+  const int s = blockIdx.x;
+  int32_t* ctl = sc.ctl + s * CTL_N;
+  if (!ctl[CTL_GO]) return;
   if (mode & MODE_EMIT) {
+    int32_t* row = shard_row(row0, s, st.T, FO);
     const int64_t tail = (int64_t)st.T * (2 + FO);
-    row[tail] = sc.ctl[CTL_ACTIVE];
-    row[tail + 1] = *st.overflow ? 1 : 0;
+    row[tail] = ctl[CTL_ACTIVE];
+    row[tail + 1] = st.overflow[s] ? 1 : 0;
   }
-  if (mode & MODE_COLLECT) sc.ctl[CTL_GO] = sc.ctl[CTL_ACTIVE] > 0 ? 1 : 0;
+  if (mode & MODE_COLLECT) ctl[CTL_GO] = ctl[CTL_ACTIVE] > 0 ? 1 : 0;
   if (mode & MODE_COMPLETION) {
-    sc.ctl[CTL_STEPS] += 1;
-    sc.ctl[CTL_GO] = sc.ctl[CTL_ANY_LIVE] ? 1 : 0;
+    ctl[CTL_STEPS] += 1;
+    ctl[CTL_GO] = ctl[CTL_ANY_LIVE] ? 1 : 0;
   }
-  sc.ctl[CTL_ACTIVE] = 0;
-  sc.ctl[CTL_ANY_LIVE] = 0;
+  ctl[CTL_ACTIVE] = 0;
+  ctl[CTL_ANY_LIVE] = 0;
+}
+
+// make_sharded_step's counters: the input plus the sum over shards of each
+// shard's delta (wrapping int32), and the OR of the shards' overflow flags
+__global__ void k_combine(ZtState in, ZtState st, int32_t* transitions,
+                          int32_t* jobs_created, int32_t* completed, uint8_t* overflow) {
+  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  unsigned dt = 0, dj = 0, dc = 0;
+  bool ovf = false;
+  for (int s = 0; s < st.NS; ++s) {
+    const int64_t c = (int64_t)s * in.ctr_stride;
+    dt += (unsigned)st.transitions[s] - (unsigned)in.transitions[c];
+    dj += (unsigned)st.jobs_created[s] - (unsigned)in.jobs_created[c];
+    dc += (unsigned)st.completed[s] - (unsigned)in.completed[c];
+    ovf = ovf || st.overflow[s];
+  }
+  *transitions = (int)((unsigned)in.transitions[0] + dt);
+  *jobs_created = (int)((unsigned)in.jobs_created[0] + dj);
+  *completed = (int)((unsigned)in.completed[0] + dc);
+  *overflow = ovf ? 1 : 0;
 }
 
 inline unsigned grid_for(int64_t n, int block) {
@@ -696,72 +807,88 @@ int zt_prepare(const ZtTables* tb, const ZtState* in, const ZtState* st,
                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t IE = (int64_t)st->I * tb->E;
-  int64_t n = st->T;
-  if (IE > n) n = IE;
+  const int64_t NIE = IE * st->NS;
+  int64_t n = (int64_t)st->T * st->NS;
+  if (NIE > n) n = NIE;
   if (out_len > n) n = out_len;
   unsigned g = grid_for(n, BLOCK);
   if (g > 4096) g = 4096;
-  k_prepare<<<g, BLOCK, 0, s>>>(*in, *st, *sc, (int)IE, mode, out, out_len);
+  k_prepare<<<g, BLOCK, 0, s>>>(*in, *st, *sc, NIE, mode, out, out_len);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (mode & MODE_COMPLETION) {
-    k_any_live<<<grid_for(st->T, BLOCK), BLOCK, 0, s>>>(*st, *sc);
+    k_any_live<<<dim3(grid_for(st->T, BLOCK), st->NS), BLOCK, 0, s>>>(*st, *sc);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (cfg & (CFG_SCOPES | CFG_MI)) {
-    k_occupancy<<<grid_for(IE > st->T ? IE : st->T, BLOCK), BLOCK, 0, s>>>(*tb, *st, *sc);
+    k_occupancy<<<dim3(grid_for(IE > st->T ? IE : st->T, BLOCK), st->NS), BLOCK, 0, s>>>(
+        *tb, *st, *sc);
     err = cudaGetLastError();
   }
   return (int)err;
 }
 
-// Enqueue n_steps lock-steps on the working state. With out != null, step k
-// writes packed row (row0 + k) of row_len ints.
+// Enqueue n_steps lock-steps on the working state, every phase one launch
+// over all NS shards. With out != null, step k writes packed row (row0 + k)
+// of NS * row_len ints (row_len per shard).
 int zt_steps(const ZtTables* tb, const ZtState* st, const ZtScratch* sc, int n_steps,
              int mode, int cfg, int32_t* out, int64_t row0, int64_t row_len,
              int nb_free, int nb_req, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t T = st->T, R = (int64_t)st->T * tb->FO, IE = (int64_t)st->I * tb->E;
   const int64_t occ_n = T > IE ? T : IE;
+  const unsigned NS = (unsigned)st->NS;
   const int nb = nb_free > nb_req ? nb_free : nb_req;
   cudaError_t err;
 #define ZT_CHECK()                      \
   err = cudaGetLastError();             \
   if (err != cudaSuccess) return (int)err
   for (int k = 0; k < n_steps; ++k) {
-    int32_t* row = out ? out + (row0 + k) * row_len : nullptr;
-    k_classify<<<grid_for(T, BLOCK), BLOCK, 0, s>>>(*tb, *st, *sc, mode, cfg, row);
+    int32_t* row = out ? out + (row0 + k) * row_len * NS : nullptr;
+    k_classify<<<dim3(grid_for(T, BLOCK), NS), BLOCK, 0, s>>>(*tb, *st, *sc, mode, cfg, row);
     ZT_CHECK();
     if (cfg & CFG_JOINS) {
-      k_join_rank<<<grid_for(R, BLOCK), BLOCK, 0, s>>>(*tb, *st, *sc);
+      k_join_rank<<<dim3(grid_for(R, BLOCK), NS), BLOCK, 0, s>>>(*tb, *st, *sc);
       ZT_CHECK();
     }
-    k_scan_sums<<<dim3(nb, 2), SCAN_THREADS, 0, s>>>(*st, *sc, tb->FO, nb_free, nb_req);
+    k_scan_sums<<<dim3(nb, 2, NS), SCAN_THREADS, 0, s>>>(*st, *sc, tb->FO, nb_free, nb_req);
     ZT_CHECK();
-    k_scan_blocks<<<1, SCAN_THREADS, 0, s>>>(*sc, nb_free, nb_req);
+    k_scan_blocks<<<NS, SCAN_THREADS, 0, s>>>(*sc, nb_free, nb_req);
     ZT_CHECK();
-    k_scan_write<<<dim3(nb, 2), SCAN_THREADS, 0, s>>>(*st, *sc, tb->FO, nb_free, nb_req);
+    k_scan_write<<<dim3(nb, 2, NS), SCAN_THREADS, 0, s>>>(*st, *sc, tb->FO, nb_free, nb_req);
     ZT_CHECK();
-    k_place<<<grid_for(R, BLOCK), BLOCK, 0, s>>>(*tb, *st, *sc, mode, cfg, row);
+    k_place<<<dim3(grid_for(R, BLOCK), NS), BLOCK, 0, s>>>(*tb, *st, *sc, mode, cfg, row);
     ZT_CHECK();
-    k_finish_instances<<<grid_for(st->I, BLOCK), BLOCK, 0, s>>>(*tb, *st, *sc, mode, cfg, row);
+    k_finish_instances<<<dim3(grid_for(st->I, BLOCK), NS), BLOCK, 0, s>>>(*tb, *st, *sc,
+                                                                           mode, cfg, row);
     ZT_CHECK();
     if (cfg & (CFG_SCOPES | CFG_MI)) {
-      k_occupancy<<<grid_for(occ_n, BLOCK), BLOCK, 0, s>>>(*tb, *st, *sc);
+      k_occupancy<<<dim3(grid_for(occ_n, BLOCK), NS), BLOCK, 0, s>>>(*tb, *st, *sc);
       ZT_CHECK();
     }
     if (mode & MODE_COLLECT) {
-      k_active<<<grid_for(T, BLOCK), BLOCK, 0, s>>>(*tb, *st, *sc, cfg);
+      k_active<<<dim3(grid_for(T, BLOCK), NS), BLOCK, 0, s>>>(*tb, *st, *sc, cfg);
       ZT_CHECK();
     }
-    k_end_step<<<1, 1, 0, s>>>(*st, *sc, tb->FO, mode, row);
+    k_end_step<<<NS, 1, 0, s>>>(*st, *sc, tb->FO, mode, row);
     ZT_CHECK();
   }
 #undef ZT_CHECK
   return 0;
 }
 
+// make_sharded_step's counter combine (after its step): writes the scalar
+// counters of the result state.
+int zt_combine(const ZtState* in, const ZtState* st, int32_t* transitions,
+               int32_t* jobs_created, int32_t* completed, uint8_t* overflow, void* stream) {
+  k_combine<<<1, 32, 0, (cudaStream_t)stream>>>(*in, *st, transitions, jobs_created,
+                                                 completed, overflow);
+  return (int)cudaGetLastError();
+}
+
 int zt_scan_tile() { return SCAN_TILE; }
+
+int zt_ctl_stride() { return CTL_N; }
 
 }  // extern "C"

@@ -1,0 +1,430 @@
+"""Prometheus-style metrics registry (no external client dependency).
+
+Reference: the reference uses Prometheus simpleclient throughout — 111 metric
+names under namespace ``zeebe`` (SURVEY §5.5): stream_processor_*, sequencer_*,
+log_appender_*, journal_*, snapshot_*, raft_*/election_latency_in_ms,
+backpressure_*, exporter_*, gateway_*, process_instance_execution_time,
+actor_*. Scraped via the management server's /metrics in the standard text
+exposition format.
+"""
+
+from __future__ import annotations
+
+import bisect
+import os
+import threading
+from typing import Callable, Iterable
+
+
+def _escape_label_value(value: str) -> str:
+    """Prometheus text-exposition escaping for label VALUES: backslash,
+    double-quote, and line-feed must be escaped or a single adversarial
+    label (an exporter id with a quote, an element id with a newline)
+    corrupts the whole scrape. Backslash first — escaping is not
+    commutative."""
+    return (value.replace("\\", "\\\\")
+                 .replace('"', '\\"')
+                 .replace("\n", "\\n"))
+
+
+def _escape_help(text: str) -> str:
+    """HELP-line escaping per the exposition format: backslash and
+    line-feed only (quotes are legal in HELP text)."""
+    return text.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+class _Metric:
+    def __init__(self, name: str, help_text: str, label_names: tuple[str, ...]) -> None:
+        self.name = name
+        self.help = help_text
+        self.label_names = label_names
+        self._children: dict[tuple, "_Child"] = {}
+        self._lock = threading.Lock()
+        # cached default child: label-less Metric.inc()/observe()/set() calls
+        # would otherwise pay the labels() lock + dict lookup per call — too
+        # hot for append/processing loops (journal/journal.py documents the
+        # same cost for its cached children)
+        self._default_child: "_Child" | None = None
+
+    def labels(self, *values: str) -> "_Child":
+        if len(values) != len(self.label_names):
+            raise ValueError(
+                f"{self.name}: expected labels {self.label_names}, got {values}"
+            )
+        key = tuple(str(v) for v in values)
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                child = self._child_cls()(self, key)
+                self._children[key] = child
+            return child
+
+    def _default(self) -> "_Child":
+        child = self._default_child
+        if child is None:
+            child = self.labels(
+                *([] if not self.label_names else [""] * len(self.label_names)))
+            self._default_child = child
+        return child
+
+    def _children_snapshot(self) -> list["_Child"]:
+        """Children list captured under the lock: ``collect()`` runs on the
+        management scrape thread while hot paths call ``labels()`` — iterating
+        the live dict can raise ``RuntimeError: dictionary changed size
+        during iteration`` mid-scrape."""
+        with self._lock:
+            return list(self._children.values())
+
+
+class _Child:
+    def __init__(self, parent: _Metric, label_values: tuple) -> None:
+        self.parent = parent
+        self.label_values = label_values
+
+    def _label_str(self) -> str:
+        if not self.parent.label_names:
+            return ""
+        pairs = ",".join(
+            f'{n}="{_escape_label_value(v)}"'
+            for n, v in zip(self.parent.label_names, self.label_values)
+        )
+        return "{" + pairs + "}"
+
+
+class Counter(_Metric):
+    type_name = "counter"
+
+    class Child(_Child):
+        def __init__(self, parent, label_values):
+            super().__init__(parent, label_values)
+            self.value = 0.0
+
+        def inc(self, amount: float = 1.0) -> None:
+            self.value += amount
+
+    def _child_cls(self):
+        return Counter.Child
+
+    def inc(self, amount: float = 1.0) -> None:
+        self._default().inc(amount)
+
+    def collect(self) -> Iterable[str]:
+        for child in self._children_snapshot():
+            yield f"{self.name}{child._label_str()} {child.value}"
+
+
+class Gauge(_Metric):
+    type_name = "gauge"
+
+    class Child(_Child):
+        def __init__(self, parent, label_values):
+            super().__init__(parent, label_values)
+            self.value = 0.0
+
+        def set(self, value: float) -> None:
+            self.value = value
+
+        def inc(self, amount: float = 1.0) -> None:
+            self.value += amount
+
+        def dec(self, amount: float = 1.0) -> None:
+            self.value -= amount
+
+    def _child_cls(self):
+        return Gauge.Child
+
+    def set(self, value: float) -> None:
+        self._default().set(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        self._default().inc(amount)
+
+    def dec(self, amount: float = 1.0) -> None:
+        self._default().dec(amount)
+
+    def collect(self) -> Iterable[str]:
+        for child in self._children_snapshot():
+            yield f"{self.name}{child._label_str()} {child.value}"
+
+
+_DEFAULT_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
+                    2.5, 5.0, 10.0)
+
+
+class Histogram(_Metric):
+    type_name = "histogram"
+
+    def __init__(self, name, help_text, label_names, buckets=_DEFAULT_BUCKETS):
+        super().__init__(name, help_text, label_names)
+        self.buckets = tuple(sorted(buckets))
+
+    class Child(_Child):
+        def __init__(self, parent, label_values):
+            super().__init__(parent, label_values)
+            self.bucket_counts = [0] * (len(parent.buckets) + 1)
+            self.sum = 0.0
+            self.count = 0
+
+        def observe(self, value: float) -> None:
+            idx = bisect.bisect_left(self.parent.buckets, value)
+            self.bucket_counts[idx] += 1
+            self.sum += value
+            self.count += 1
+
+    def _child_cls(self):
+        return Histogram.Child
+
+    def observe(self, value: float) -> None:
+        self._default().observe(value)
+
+    def collect(self) -> Iterable[str]:
+        for child in self._children_snapshot():
+            labels = child._label_str()
+            base = labels[1:-1] if labels else ""
+            cumulative = 0
+            for bucket, count in zip(self.buckets, child.bucket_counts):
+                cumulative += count
+                le = f'le="{bucket}"'
+                inner = f"{base},{le}" if base else le
+                yield f"{self.name}_bucket{{{inner}}} {cumulative}"
+            cumulative += child.bucket_counts[-1]
+            le = 'le="+Inf"'
+            inner = f"{base},{le}" if base else le
+            yield f"{self.name}_bucket{{{inner}}} {cumulative}"
+            yield f"{self.name}_sum{labels} {child.sum}"
+            yield f"{self.name}_count{labels} {child.count}"
+
+
+def estimate_quantile(buckets: tuple, bucket_counts: list, q: float) -> float:
+    """Quantile estimate from cumulative histogram buckets, Prometheus
+    ``histogram_quantile`` style: find the bucket the q-th observation lands
+    in and interpolate linearly inside it. The +Inf bucket clamps to the
+    highest finite bound (there is no upper edge to interpolate toward)."""
+    total = sum(bucket_counts)
+    if total == 0:
+        return 0.0
+    rank = q * total
+    cumulative = 0.0
+    for i, count in enumerate(bucket_counts[:-1]):
+        prev_cumulative = cumulative
+        cumulative += count
+        if cumulative >= rank and count:
+            lower = buckets[i - 1] if i > 0 else 0.0
+            upper = buckets[i]
+            return lower + (upper - lower) * (rank - prev_cumulative) / count
+    return float(buckets[-1]) if buckets else 0.0
+
+
+class MetricsRegistry:
+    def __init__(self, namespace: str = "zeebe") -> None:
+        self.namespace = namespace
+        self._metrics: dict[str, _Metric] = {}
+        self._lock = threading.Lock()
+        # hooks run at scrape/snapshot time to refresh pull-style values
+        # (process CPU/RSS/GC) that nothing in the hot path updates
+        self._collect_hooks: list[Callable[[], None]] = []
+
+    def _register(self, cls, name: str, help_text: str, labels: tuple,
+                  raw: bool = False, **kw) -> _Metric:
+        full = name if raw else f"{self.namespace}_{name}"
+        with self._lock:
+            metric = self._metrics.get(full)
+            if metric is None:
+                metric = cls(full, help_text, tuple(labels), **kw)
+                self._metrics[full] = metric
+            return metric
+
+    def counter(self, name: str, help_text: str = "",
+                labels: tuple[str, ...] = (), raw: bool = False) -> Counter:
+        return self._register(Counter, name, help_text, labels, raw=raw)
+
+    def gauge(self, name: str, help_text: str = "",
+              labels: tuple[str, ...] = (), raw: bool = False) -> Gauge:
+        return self._register(Gauge, name, help_text, labels, raw=raw)
+
+    def histogram(self, name: str, help_text: str = "",
+                  labels: tuple[str, ...] = (), buckets=_DEFAULT_BUCKETS,
+                  raw: bool = False) -> Histogram:
+        return self._register(Histogram, name, help_text, labels, raw=raw,
+                              buckets=buckets)
+
+    def add_collect_hook(self, hook: Callable[[], None]) -> None:
+        """Register a pre-scrape refresh hook (idempotent by identity)."""
+        with self._lock:
+            if hook not in self._collect_hooks:
+                self._collect_hooks.append(hook)
+
+    def _run_collect_hooks(self) -> None:
+        with self._lock:
+            hooks = list(self._collect_hooks)
+        for hook in hooks:
+            try:
+                hook()
+            except Exception:  # noqa: BLE001 — a failing refresh hook must
+                pass           # never take the scrape (or the sampler) down
+
+    def _metrics_snapshot(self) -> list[_Metric]:
+        # registration happens on hot paths (labels()/first use); both the
+        # scrape and the time-series sampler iterate a frozen list
+        with self._lock:
+            return list(self._metrics.values())
+
+    def expose(self) -> str:
+        """Prometheus text exposition format."""
+        self._run_collect_hooks()
+        lines = []
+        for metric in self._metrics_snapshot():
+            lines.append(f"# HELP {metric.name} {_escape_help(metric.help)}")
+            lines.append(f"# TYPE {metric.name} {metric.type_name}")
+            lines.extend(metric.collect())
+        return "\n".join(lines) + "\n"
+
+    def snapshot(self) -> list[tuple]:
+        """Structured point-in-time view for the time-series sampler, one
+        tuple per child series — cheaper to consume than re-parsing the text
+        exposition, and taken under the same locks as ``expose``:
+
+        - counter/gauge: ``(name, type, label_str, value)``
+        - histogram:     ``(name, 'histogram', label_str,
+                            (count, sum, bucket_counts_copy, buckets))``
+        """
+        self._run_collect_hooks()
+        out: list[tuple] = []
+        for metric in self._metrics_snapshot():
+            kind = metric.type_name
+            for child in metric._children_snapshot():
+                if kind == "histogram":
+                    out.append((metric.name, kind, child._label_str(),
+                                (child.count, child.sum,
+                                 list(child.bucket_counts), metric.buckets)))
+                else:
+                    out.append((metric.name, kind, child._label_str(),
+                                child.value))
+        return out
+
+    def describe(self) -> list[dict]:
+        """Name/type/labels/HELP of every registered metric family, sorted —
+        the ``metrics-doc`` generator's source of truth."""
+        return sorted(
+            ({"name": m.name, "type": m.type_name,
+              "labels": list(m.label_names), "help": m.help}
+             for m in self._metrics_snapshot()),
+            key=lambda d: d["name"])
+
+
+# process-global default registry (the reference's CollectorRegistry.default)
+REGISTRY = MetricsRegistry()
+
+
+# -- process self-metrics ------------------------------------------------------
+
+_PAGE_SIZE = 4096
+
+
+def _read_rss_bytes() -> float:
+    """Resident set size. /proc is authoritative on Linux; the ru_maxrss
+    fallback (peak, in KiB) keeps the gauge meaningful elsewhere."""
+    try:
+        with open("/proc/self/statm", "rb") as f:
+            return float(int(f.read().split()[1]) * _PAGE_SIZE)
+    except (OSError, ValueError, IndexError):
+        try:
+            import resource
+
+            return float(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024)
+        except Exception:  # noqa: BLE001 — platform without getrusage
+            return 0.0
+
+
+def install_process_metrics(registry: MetricsRegistry | None = None) -> None:
+    """Register the standard Prometheus process/Python self-metrics
+    (``process_cpu_seconds_total``, ``process_resident_memory_bytes``,
+    ``python_gc_*``) as pull-style gauges refreshed by a collect hook, so
+    ``/metrics`` and the time-series store can correlate engine stalls with
+    host pressure (a flush-latency alert next to a climbing RSS curve reads
+    very differently from one next to a flat line). Idempotent; names follow
+    the prometheus_client conventions, un-namespaced."""
+    import gc
+    import resource
+
+    reg = registry or REGISTRY
+    # a fresh refresh-closure per call would defeat add_collect_hook's
+    # identity dedupe, stacking a redundant rusage/statm/gc pass onto every
+    # scrape and sampler tick
+    if getattr(reg, "_process_metrics_installed", False):
+        return
+    reg._process_metrics_installed = True
+    cpu = reg.counter(
+        "process_cpu_seconds_total",
+        "Total user and system CPU time spent in seconds.", raw=True)
+    rss = reg.gauge(
+        "process_resident_memory_bytes",
+        "Resident memory size in bytes.", raw=True)
+    gc_collections = reg.counter(
+        "python_gc_collections_total",
+        "Number of times this generation was collected",
+        ("generation",), raw=True)
+    gc_collected = reg.counter(
+        "python_gc_objects_collected_total",
+        "Objects collected during gc", ("generation",), raw=True)
+    gc_uncollectable = reg.gauge(
+        "python_gc_objects_uncollectable_total",
+        "Uncollectable objects found during GC", ("generation",), raw=True)
+    # zeebe-namespaced process gauges: the fleet auditor's
+    # leak-trend detectors read these off the sampler tick, so they ride
+    # the normal zeebe_ namespace and land in the time-series store
+    proc_rss = reg.gauge(
+        "process_rss_bytes",
+        "resident set size of this process (bytes), from /proc/self with "
+        "an ru_maxrss fallback")
+    proc_fds = reg.gauge(
+        "process_fd_count",
+        "open file descriptors of this process (0 where /proc/self/fd is "
+        "unavailable)")
+    proc_threads = reg.gauge(
+        "process_thread_count",
+        "live threads in this process")
+
+    def refresh() -> None:
+        ru = resource.getrusage(resource.RUSAGE_SELF)
+        # counters are cumulative by contract: assign, don't inc — rusage is
+        # already the monotonic total
+        cpu._default().value = ru.ru_utime + ru.ru_stime
+        rss_bytes = _read_rss_bytes()
+        rss.set(rss_bytes)
+        proc_rss.set(rss_bytes)
+        proc_fds.set(float(read_fd_count()))
+        proc_threads.set(float(read_thread_count()))
+        for gen, stats in enumerate(gc.get_stats()):
+            g = str(gen)
+            gc_collections.labels(g).value = float(stats.get("collections", 0))
+            gc_collected.labels(g).value = float(stats.get("collected", 0))
+            gc_uncollectable.labels(g).set(
+                float(stats.get("uncollectable", 0)))
+
+    reg.add_collect_hook(refresh)
+    refresh()
+
+
+def read_fd_count() -> int:
+    """Open file descriptors of this process — ``/proc/self/fd`` on Linux,
+    gracefully 0 elsewhere (the trend detector treats a constant 0 as a
+    flat line, never a leak)."""
+    try:
+        return len(os.listdir("/proc/self/fd"))
+    except OSError:
+        return 0
+
+
+def read_thread_count() -> int:
+    """Live threads in this process. ``threading.active_count`` only sees
+    threads started through :mod:`threading`, so prefer the kernel's count
+    from ``/proc/self/status`` when available."""
+    try:
+        with open("/proc/self/status", "rb") as fh:
+            for line in fh:
+                if line.startswith(b"Threads:"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return threading.active_count()
