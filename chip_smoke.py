@@ -31,45 +31,75 @@ exit) if any phase fails:
    wave by ``drive_groups_on_mesh`` on one MeshKernelRunner from 8 threads;
    every partition's traces and final state equal the same group driven
    alone by ``drive_group`` on the card, and dispatches coalesced;
-8. prints the kernels line (JSON), then the card line, then the result line.
+8. DMN batch evaluation: the decision kernel (``csrc/decision.cu``) byte-
+   equal to its plain version at the benchmark's geometry (``run_dmn_batch``:
+   N = 200,000 contexts, I = 2, R = 8, K = 4) and at a wide one (N = 16,384,
+   I = 4, R = 512, K = 4, random atoms of every kind and flag);
+   ``batch_evaluate`` lists equal to the plain outputs' under every hit
+   policy and COLLECT aggregation at both; a 2,000-context sample equal to
+   the host DecisionEngine's unary tests; rows/s through ``batch_evaluate``
+   with the share of the wall in ``pack_contexts``;
+9. the device-fault seam on the card: a clean serving group (I = 2048, mixed
+   set) driven through every wave at shadow rate 1.0 (the CPU oracle matches,
+   nothing quarantined); at I = 256, injected corruption (every injection
+   caught: by the shadow, which declines the group as device-shadow-
+   mismatch, or contained as a typed decline), a stall past a 200 ms watchdog deadline (a typed wedge
+   within the deadline plus 1 s, the ladder at SUSPECT), a dispatch
+   exception (a typed dispatch error), and a flat thread count over 20
+   wedges;
+10. prints the kernels line (JSON), then the card line, then the result line.
 
 Imports neither JAX nor the JAX package. Launch counts are zeroed right
 before each main path runs (phase 4 for step and run_collect, phase 5 for
-run_to_completion, phase 7 for sharded_step and sharded_collect) and read
-right after; comparison launches do not count.
+run_to_completion, phase 7 for sharded_step and sharded_collect, phase 8's
+``batch_evaluate`` at the benchmark's geometry for decision) and read right
+after; comparison launches do not count.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
+from zeebe_tpu_torch.dmn import parse_dmn_xml
 from zeebe_tpu_torch.engine import kernel_backend as kb
+from zeebe_tpu_torch.engine.device_health import SUSPECT, reset_shared_device_health
 from zeebe_tpu_torch.models.bpmn import Bpmn, transform
 from zeebe_tpu_torch.ops import automaton as A
+from zeebe_tpu_torch.ops import decision as D
 from zeebe_tpu_torch.ops import kernels
 from zeebe_tpu_torch.ops.tables import compile_tables, f64_key_planes
 from zeebe_tpu_torch.parallel import mesh as M
 from zeebe_tpu_torch.parallel import mesh_runner as MR
 from zeebe_tpu_torch.testing import workloads as W
 from zeebe_tpu_torch.testing.catalog import ProcessCatalog
+from zeebe_tpu_torch.testing.chaos_device import DeviceChaosController, DeviceFaultPlan
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-SOURCE = "zeebe_tpu_torch/csrc/automaton.cu"
+# H100 SXM int32 rate: 64 integer add/compare/logic results per clock per SM
+# (CUDA C++ Programming Guide, arithmetic throughput, compute capability
+# 9.0) x 132 SMs x 1.98 GHz boost
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+SOURCES = {"decision": "zeebe_tpu_torch/csrc/decision.cu"}
 REPLACES = {
     "step": "zeebe_tpu/ops/automaton.py:366",
     "run_collect": "zeebe_tpu/ops/automaton.py:704",
     "run_to_completion": "zeebe_tpu/ops/automaton.py:773",
     "sharded_step": "zeebe_tpu/parallel/mesh.py:102",
     "sharded_collect": "zeebe_tpu/parallel/mesh_runner.py:233",
+    "decision": "zeebe_tpu/ops/decision.py:343",
 }
-KERNELS = ("step", "run_collect", "run_to_completion", "sharded_step", "sharded_collect")
+KERNELS = ("step", "run_collect", "run_to_completion", "sharded_step", "sharded_collect",
+           "decision")
 N_SHARDS = 8
 
 
@@ -678,6 +708,326 @@ def sharded_timings(info: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# DMN batch evaluation (phase 8) and the device-fault seam (phase 9)
+
+
+POLICIES = (("FIRST", ""), ("UNIQUE", ""), ("ANY", ""), ("RULE ORDER", ""), ("COLLECT", ""),
+            ("COLLECT", "SUM"), ("COLLECT", "MIN"), ("COLLECT", "MAX"), ("COLLECT", "COUNT"))
+# int32 operations of an atom test whose result depends on the context:
+# RANGE, both lexicographic ends (3 compares and 2 logic ops each) and
+# their AND; EQ, two compares and their AND
+RANGE_OPS, EQ_OPS = 11, 3
+
+
+def decision_bound(atoms, keys, valid) -> dict:
+    """Least time for one evaluation on the card: the bytes (every input
+    read once, m, selected and counts written once) over the HBM rate, and
+    the integer operations the function needs over the int32 rate; the
+    larger bounds it. Only work whose result depends on the context counts:
+    kinds and flags are table constants, a cell holding an A_TRUE atom
+    always matches, and a cell of A_PAD atoms never does, nor its rule. Per
+    context: a validity test per input; per cell that depends on the
+    context, its RANGE and EQ tests, the ORs joining them, an AND with the
+    validity and an AND into its rule; per rule that can match, a count and
+    a first-match update."""
+    kind = atoms[0].cpu().numpy()
+    N = keys.shape[0]
+    I, R, _ = kind.shape
+    moved = nbytes(list(atoms) + [keys, valid]) + N * R + 8 * N
+    tests = (kind == D.A_RANGE).sum(-1) + (kind == D.A_EQ).sum(-1)  # [I, R]
+    always = (kind == D.A_TRUE).any(-1)
+    never = ~always & (tests == 0)
+    can_match = ~never.any(0)  # [R]
+    varies = ~always & ~never & can_match[None, :]
+    cell_ops = (RANGE_OPS * (kind == D.A_RANGE).sum(-1) + EQ_OPS * (kind == D.A_EQ).sum(-1)
+                + (tests - 1) + 2)
+    ops = N * (I + int(cell_ops[varies].sum()) + 2 * int(can_match.sum()))
+    byte_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"bytes": moved, "ops": ops, "bound_ms": max(byte_ms, ops_ms),
+            "bound_by": "bytes" if byte_ms >= ops_ms else "operations"}
+
+
+def decision_err(got, want) -> int:
+    """Byte-equality of (m, selected, counts): dtypes and shapes must match;
+    returns the largest absolute difference (0 when byte-equal)."""
+    for name, a, b in zip(("m", "selected", "counts"), got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"decision {name}: {a.dtype}{tuple(a.shape)} vs "
+                                 f"{b.dtype}{tuple(b.shape)}")
+    return max_abs_err(dict(zip("msc", got)), dict(zip("msc", want)))
+
+
+def decision_device_ms(atoms, keys, valid) -> tuple[float, float | None]:
+    """The decision kernel without its wrapper: raw launches back to back on
+    preallocated outputs (CUDA events), and the kernel's own time from a
+    torch.profiler trace of 20 launches (None when the trace shows none)."""
+    lib = kernels.load().lib
+    N, I, R, K = keys.shape[0], *atoms[0].shape
+    m = torch.empty((N, R), dtype=torch.bool, device=keys.device)
+    counts = torch.empty(N, dtype=torch.int32, device=keys.device)
+    selected = torch.empty_like(counts)
+    args = ([a.data_ptr() for a in atoms] + [keys.data_ptr(), valid.data_ptr(), N, I, R, K,
+            m.data_ptr(), counts.data_ptr(), selected.data_ptr(),
+            torch.cuda.current_stream().cuda_stream])
+    back_to_back = time_ms(lambda: lib.zt_decision(*args), 200)
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                lib.zt_decision(*args)
+            torch.cuda.synchronize()
+        total_us = sum(getattr(e, "device_time_total", 0) or 0 for e in prof.key_averages()
+                       if "k_decision" in e.key)
+    except RuntimeError as exc:  # no CUPTI trace on this machine: not measured
+        log(f"torch.profiler gave no trace: {exc}")
+        total_us = 0
+    return back_to_back, (total_us / 20 / 1e3 if total_us > 0 else None)
+
+
+def wide_table(rng, I: int = 4, R: int = 512, K: int = 4) -> D.DeviceDecisionTable:
+    """A table of R random rules over I numeric inputs: every atom kind and
+    flag, endpoints the f64 keys of values in [-50, 50] (EQ on integers) or
+    the open-ended sentinels the compiler writes, numeric outputs."""
+    def planes(values):
+        return np.array([f64_key_planes(float(v)) for v in values.reshape(-1)],
+                        np.int32).reshape(values.shape + (2,))
+
+    kind = rng.integers(0, 4, (I, R, K)).astype(np.int32)
+    flags = rng.integers(0, 4, (I, R, K)).astype(np.int32)
+    lo = planes(rng.integers(-50, 40, (I, R, K)).astype(np.float64))
+    hi = planes(rng.integers(-40, 51, (I, R, K)).astype(np.float64))
+    lo[rng.random((I, R, K)) < 0.15] = D._INT32_MIN
+    hi[rng.random((I, R, K)) < 0.15] = D._INT32_MAX
+    return D.DeviceDecisionTable(
+        decision_id="wide", hit_policy="FIRST", aggregation="",
+        input_names=[f"x{i}" for i in range(I)], input_kinds=["num"] * I,
+        kind=kind, lo=lo, hi=hi, flags=flags,
+        out_values=rng.integers(-20, 100, R).astype(np.float64) / 4, str_ids={},
+        num_rules=R)
+
+
+def wide_contexts(rng, n: int, I: int = 4) -> list[dict]:
+    """Integers (EQ can match), floats and nulls over [-50, 50]."""
+    ints = rng.integers(-50, 51, (n, I))
+    floats = rng.uniform(-50, 50, (n, I))
+    roll = rng.random((n, I))
+    return [{f"x{i}": (None if roll[c, i] < 0.1 else int(ints[c, i]) if roll[c, i] < 0.55
+                      else float(floats[c, i])) for i in range(I)} for c in range(n)]
+
+
+def host_matches(decision, ctx: dict) -> list[int]:
+    """Matched rule indices per the host DecisionEngine's unary tests."""
+    values = [inp.expression.evaluate(ctx, lambda: 0) if inp.expression else None
+              for inp in decision.inputs]
+    return [r for r, rule in enumerate(decision.rules)
+            if all(t(v, ctx) for t, v in zip(rule.tests, values))]
+
+
+def check_lists(table, contexts, plain, label: str, dev) -> None:
+    """batch_evaluate (the kernel) under every hit policy against the
+    policy's decision over the plain version's outputs."""
+    m, sel, cnt = (t.cpu().numpy() for t in plain)
+    for hit, agg in POLICIES:
+        if isinstance(table, str):
+            t = D.compile_decision_table(parse_dmn_xml(W.dmn_band_xml(hit, agg))
+                                         .decisions["band"])
+        else:
+            t = dataclasses.replace(table, hit_policy=hit, aggregation=agg)
+        if D.batch_evaluate(t, contexts, device=dev) != D.decide(t, m, sel, cnt):
+            raise AssertionError(f"{label}: batch_evaluate lists differ under {hit} {agg}")
+
+
+def phase_decision(rng, dev, card: str) -> dict:
+    """Phase 8: the main path (batch_evaluate at the benchmark's geometry,
+    counted), then the kernel against the plain version at both geometries."""
+    decision = parse_dmn_xml(W.dmn_band_xml()).decisions["band"]
+    table = D.compile_decision_table(decision)
+    contexts = W.dmn_band_contexts(200_000)
+    D.batch_evaluate(table, contexts[:1000], device=dev)  # warm-up, not counted
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = D.batch_evaluate(table, contexts, device=dev)
+    wall = time.perf_counter() - t0
+    launches = A.launch_counts()
+    # the call's three stages once more, one by one (not counted)
+    t0 = time.perf_counter()
+    keys, valid = table.pack_contexts(contexts)
+    t1 = time.perf_counter()
+    outs = D.evaluate_batch(*(torch.from_numpy(a).to(dev) for a in
+                              (table.kind, table.lo, table.hi, table.flags, keys, valid)))
+    outs = [o.cpu().numpy() for o in outs]
+    t2 = time.perf_counter()
+    D.decide(table, *outs)
+    t3 = time.perf_counter()
+    stages = t3 - t0
+    log(f"phase8 batch_evaluate [{card}]: {len(contexts)} contexts, FIRST, "
+        f"{sum(o is not None for o in out)} matched, {wall * 1e3:.3f} ms "
+        f"({len(contexts) / wall:.1f} rows/s, host-bound); stages timed apart: "
+        f"pack_contexts {(t1 - t0) * 1e3:.3f} ms ({100 * (t1 - t0) / stages:.1f}%), "
+        f"copy in + kernel + copy out {(t2 - t1) * 1e3:.3f} ms "
+        f"({100 * (t2 - t1) / stages:.1f}%), hit policy {(t3 - t2) * 1e3:.3f} ms "
+        f"({100 * (t3 - t2) / stages:.1f}%)")
+    info = {"launches": launches, "rows_per_s": len(contexts) / wall, "err": 0,
+            "pack_share": (t1 - t0) / stages}
+
+    sample = rng.choice(len(contexts), 2000, replace=False)
+    rule_order = D.compile_decision_table(
+        parse_dmn_xml(W.dmn_band_xml("RULE ORDER")).decisions["band"])
+    matched = D.batch_evaluate(rule_order, [contexts[i] for i in sample], device=dev)
+    for i, got in zip(sample, matched):
+        if got != host_matches(decision, contexts[i]):
+            raise AssertionError(f"context {contexts[i]}: kernel {got}, host engine "
+                                 f"{host_matches(decision, contexts[i])}")
+
+    wtable = wide_table(rng)
+    wcontexts = wide_contexts(rng, 16_384)
+    geometries = {"bench": (table, contexts, keys, valid)}
+    geometries["wide"] = (wtable, wcontexts) + wtable.pack_contexts(wcontexts)
+    for name, (t, ctxs, k, v) in geometries.items():
+        atoms = [torch.from_numpy(a).to(dev) for a in (t.kind, t.lo, t.hi, t.flags)]
+        kk, vv = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
+        got = D.evaluate_batch(*atoms, kk, vv)
+        plain = D._evaluate_batch(*atoms, kk, vv)
+        err = decision_err(got, plain)
+        info["err"] = max(info["err"], err)
+        if err:
+            raise AssertionError(f"{name}: decision kernel differs from plain")
+        check_lists("band" if name == "bench" else t, ctxs, plain, name, dev)
+        bound = decision_bound(atoms, kk, vv)
+        ms = time_ms(lambda: kernels.run_decision(*atoms, kk, vv), 50)
+        plain_ms = time_ms(lambda: D._evaluate_batch(*atoms, kk, vv), 3)
+        device_ms, profiled_ms = decision_device_ms(atoms, kk, vv)
+        info[name] = {"ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+                      "profiled_ms": profiled_ms, **bound}
+        N = k.shape[0]
+        I, R, K = t.kind.shape
+        log(f"phase8 {name} [{card}]: N={N} I={I} R={R} K={K}, m/selected/counts "
+            f"byte-equal to plain, lists equal under {len(POLICIES)} policies, "
+            f"{int(got[2].gt(0).sum())} contexts matched; wrapper call {ms:.4f} ms, "
+            f"launches back to back {device_ms:.4f} ms, kernel by the profiler "
+            f"{'not measured' if profiled_ms is None else f'{profiled_ms:.4f} ms'}, "
+            f"plain {plain_ms:.4f} ms; bound {bound['bound_ms'] * 1e3:.3f} us by "
+            f"{bound['bound_by']} ({bound['bytes']} B, {bound['ops']} int32 ops)")
+    return info
+
+
+def seam_group(tables, n: int, rng, dev):
+    """A fresh mixed-set serving group of n instances on the card."""
+    insts = make_group(tables, n, rng)
+    arrays, I, T = kb.build_group_arrays(tables, insts)
+    return insts, kb.group_state(arrays, dev), I, T
+
+
+def phase_fault_seam(rng, dev, card: str, tables, dt) -> dict:
+    """Phase 9: the device-fault seam on the card. Resets the chaos plane
+    and the shared ladder before and after."""
+    config = tables.kernel_config
+    kb.install_device_chaos(None)
+    reset_shared_device_health()
+    try:
+        # a clean serving group through every wave, every wave shadowed
+        defense = kb.DeviceDefense()
+        defense.health.cfg.shadow_sample_rate = 1.0
+        insts = make_group(tables, 2048, rng)
+        copy = [kb.GroupInstance(idx=i.idx, definition=i.definition, slots=dict(i.slots))
+                for i in insts]
+        got = kb.drive_group(tables, dt, insts, device=dev, defense=defense)
+        want = kb.drive_group(tables, dt, copy, device=dev)
+        health = defense.health
+        if got.waves != want.waves or max_abs_err(got.state, want.state):
+            raise AssertionError("shadowed clean group differs from the unshadowed run")
+        if defense.shadow_quarantined or health.shadow_mismatches or not health.shadow_checks:
+            raise AssertionError(f"clean group: {health.shadow_checks} checks, "
+                                 f"{health.shadow_mismatches} mismatches, "
+                                 f"{defense.shadow_quarantined} quarantined")
+        oracle_ms = defense.shadow_seconds / health.shadow_checks * 1e3
+        log(f"phase9 shadow [{card}]: clean group I=2048 mixed set, {len(got.waves)} waves "
+            f"all shadowed, 0 mismatches, 0 quarantined; CPU oracle {oracle_ms:.3f} ms per "
+            f"shadowed group (wave)")
+        info = {"oracle_ms": oracle_ms}
+
+        # corruption at I = 256: every injection caught
+        reset_shared_device_health()
+        defense = kb.DeviceDefense()
+        defense.health.cfg.shadow_sample_rate = 1.0
+        with tempfile.TemporaryDirectory() as tmp:
+            controller = DeviceChaosController(
+                DeviceFaultPlan(seed=5, corrupt_p=1.0, flips=3), "smoke")
+            controller.ledger_file = f"{tmp}/ledger.jsonl"
+            how = []
+            for _ in range(8):
+                _, state, I, T = seam_group(tables, 256, rng, dev)
+                kb.install_device_chaos(None)
+                if kb.run_group(dt, config, state, I, T).fail_reason is not None:
+                    raise AssertionError("the clean run of a corruption group failed")
+                kb.install_device_chaos(controller)
+                out = kb.run_group(dt, config, state, I, T, defense=defense)
+                kb.install_device_chaos(None)
+                if out.fail_reason == "device-shadow-mismatch" and out.state is state:
+                    how.append("shadow")
+                elif out.fail_reason in ("no-quiesce", "token-overflow"):
+                    how.append("contained")
+                else:
+                    raise AssertionError(f"corrupt group declined as {out.fail_reason}")
+            with open(controller.ledger_file) as f:
+                lines = [json.loads(line) for line in f]
+        injected = {e["seq"] for e in lines if e["kind"] == "inject"}
+        caught = {e["seq"] for e in lines if e["kind"] == "caught"}
+        if not injected or injected != caught:
+            raise AssertionError(f"injections {sorted(injected)}, caught {sorted(caught)}")
+        if defense.shadow_quarantined != how.count("shadow"):
+            raise AssertionError(f"{defense.shadow_quarantined} quarantined, "
+                                 f"{how.count('shadow')} shadow declines")
+        log(f"phase9 corrupt [{card}]: I=256, 8 groups, {len(injected)} injections of 3 "
+            f"flips, all caught ({how.count('shadow')} groups by the shadow, declined as "
+            f"device-shadow-mismatch, {how.count('contained')} contained as typed "
+            f"declines)")
+
+        # a stall past a 200 ms deadline, 20 wedges, a dispatch exception
+        reset_shared_device_health()
+        defense = kb.DeviceDefense()
+        defense.health.cfg.dispatch_timeout_ms = 200
+        _, state, I, T = seam_group(tables, 256, rng, dev)
+        kb.install_device_chaos(DeviceChaosController(
+            DeviceFaultPlan(seed=1, stall_p=1.0, stall_ms=600), "smoke"))
+        baseline = threading.active_count()
+        walls = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            out = kb.run_group(dt, config, state, I, T, defense=defense)
+            walls.append(time.perf_counter() - t0)
+            if out.fail_reason != "device-wedged" or walls[-1] > 1.2:
+                raise AssertionError(f"stall: {out.fail_reason} after {walls[-1]:.3f} s")
+            if defense.health.state not in (SUSPECT, "QUARANTINED"):
+                raise AssertionError(f"ladder at {defense.health.state} after a wedge")
+        time.sleep(0.7)  # the last stall ends; its worker re-idles
+        threads = threading.active_count()
+        if threads > baseline + kb._WatchdogPool.MAX_IDLE:
+            raise AssertionError(f"threads {baseline} -> {threads} over 20 wedges")
+        kb.install_device_chaos(DeviceChaosController(
+            DeviceFaultPlan(seed=1, dispatch_fail_p=1.0), "smoke"))
+        out = kb.run_group(dt, config, state, I, T, defense=defense)
+        if out.fail_reason != "device-dispatch-error":
+            raise AssertionError(f"dispatch exception: {out.fail_reason}")
+        kb.install_device_chaos(None)
+        if kb.run_group(dt, config, state, I, T, defense=defense).fail_reason is not None:
+            raise AssertionError("a clean group after the faults failed")
+        log(f"phase9 faults [{card}]: stall 600 ms vs 200 ms deadline -> device-wedged in "
+            f"{min(walls) * 1e3:.1f}-{max(walls) * 1e3:.1f} ms over 20 wedges, threads "
+            f"{baseline} -> {threads}, ladder {defense.health.state} "
+            f"(faults {defense.health.faults}); dispatch exception -> device-dispatch-error; "
+            f"the next clean group ran")
+        info["wedge_ms"] = (min(walls) * 1e3, max(walls) * 1e3)
+        return info
+    finally:
+        kb.install_device_chaos(None)
+        reset_shared_device_health()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -708,6 +1058,10 @@ def main() -> int:
     stiming = sharded_timings(sharded)
     timing.update(stiming)
     worst.update(sharded["worst"])
+    decision = phase_decision(rng, dev, card)
+    seam = phase_fault_seam(rng, dev, card, slice_info["tables"], slice_info["dt"])
+    timing["decision"] = {**decision["bench"]}
+    worst["decision"] = decision["err"]
     log(f"sharded timings [{card}] at {N_SHARDS} shards of the serving geometry: "
         f"sharded_step {stiming['sharded_step']['ms']:.4f} ms per call (plain "
         f"{stiming['sharded_step']['plain_ms']:.4f}), "
@@ -728,6 +1082,18 @@ def main() -> int:
         f"step {slice_info['launches']['step'] / 8} enqueued "
         f"({slice_info['decoded_steps'] / 8} decoded live steps), "
         f"run_collect {slice_info['launches']['run_collect'] / 8}")
+    wide = decision["wide"]
+    log(f"decision timings [{card}]: benchmark geometry wrapper call "
+        f"{timing['decision']['ms']:.4f} ms, launches back to back "
+        f"{timing['decision']['device_ms']:.4f} ms (plain {timing['decision']['plain_ms']:.4f}, "
+        f"bound {timing['decision']['bound_ms'] * 1e3:.3f} us by "
+        f"{timing['decision']['bound_by']}); wide geometry wrapper call {wide['ms']:.4f} ms, "
+        f"back to back {wide['device_ms']:.4f} ms "
+        f"(plain {wide['plain_ms']:.4f}, bound {wide['bound_ms'] * 1e3:.3f} us by "
+        f"{wide['bound_by']}); batch_evaluate {decision['rows_per_s']:.1f} rows/s; "
+        f"launches on its path {decision['launches']['decision']}; fault seam: CPU oracle "
+        f"{seam['oracle_ms']:.3f} ms per shadowed I=2048 group, wedge to typed failure "
+        f"{seam['wedge_ms'][0]:.1f}-{seam['wedge_ms'][1]:.1f} ms at a 200 ms deadline")
     busy_ms = slice_info["decoded_steps"] * timing["step"]["device_ms"]
     log(f"phase4 busy estimate [{card}]: decoded live steps x back-to-back lock-step "
         f"= {busy_ms:.4f} ms of kernels in {slice_info['device_loop_ms']:.4f} ms of "
@@ -738,7 +1104,8 @@ def main() -> int:
               "run_collect": slice_info["launches"]["run_collect"],
               "run_to_completion": ceiling["launches"]["run_to_completion"],
               "sharded_step": mesh["launches"]["sharded_step"],
-              "sharded_collect": mesh["launches"]["sharded_collect"]}
+              "sharded_collect": mesh["launches"]["sharded_collect"],
+              "decision": decision["launches"]["decision"]}
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on its main path")
@@ -746,11 +1113,13 @@ def main() -> int:
     for name in KERNELS:
         t = ceiling if name == "run_to_completion" else timing[name]
         kernels_line.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "launches": counts[name],
+            "name": name, "route": "cuda",
+            "source": SOURCES.get(name, "zeebe_tpu_torch/csrc/automaton.cu"),
+            "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": ceiling["err"] if name == "run_to_completion" else worst[name],
             "match": True, "tolerance": 0, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "bound_ms": t["bound_ms"], "bound_by": t.get("bound_by", "bytes"),
+            "library_ms": None, "device_ms": t.get("device_ms"),
         })
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(card, flush=True)

@@ -16,7 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from zeebe_tpu_torch.dmn import parse_dmn_xml
 from zeebe_tpu_torch.engine import kernel_backend as kb
+from zeebe_tpu_torch.engine.device_health import HEALTHY, SUSPECT, reset_shared_device_health
+from zeebe_tpu_torch.ops import decision as D
 from zeebe_tpu_torch.models.bpmn import Bpmn, transform
 from zeebe_tpu_torch.ops import automaton as A
 from zeebe_tpu_torch.ops import kernels
@@ -25,6 +28,7 @@ from zeebe_tpu_torch.parallel import mesh as M
 from zeebe_tpu_torch.parallel import mesh_runner as MR
 from zeebe_tpu_torch.testing import workloads as W
 from zeebe_tpu_torch.testing.catalog import ProcessCatalog
+from zeebe_tpu_torch.testing.chaos_device import DeviceChaosController, DeviceFaultPlan
 
 pytestmark = pytest.mark.cuda
 
@@ -242,14 +246,14 @@ def test_launch_counts(cuda):
     A.reset_launch_counts()
     A.run_collect(dt, state, n_steps=8, config=tables.kernel_config)
     assert A.launch_counts() == {"step": 8, "run_collect": 1, "run_to_completion": 0,
-                                 "sharded_step": 0, "sharded_collect": 0}
+                                 "sharded_step": 0, "sharded_collect": 0, "decision": 0}
     # one_task quiesces within the first block of steps: the host stops there
     A.run_to_completion(dt, state, max_steps=64, config=tables.kernel_config)
     A.run_collect_plain(dt, state, n_steps=8, config=tables.kernel_config)
     A.step_plain(dt, state, config=tables.kernel_config)
     assert A.launch_counts() == {"step": 8 + kernels.COMPLETION_BLOCK_STEPS,
                                  "run_collect": 1, "run_to_completion": 1,
-                                 "sharded_step": 0, "sharded_collect": 0}
+                                 "sharded_step": 0, "sharded_collect": 0, "decision": 0}
 
 
 @pytest.mark.parametrize("name", ["one_task", "fork_join", "mixed"])
@@ -436,3 +440,99 @@ def test_drive_groups_on_mesh_matches_drive_group(cuda):
                               [kb.GroupInstance(**vars(i)) for i in insts], device=cuda)
         assert result.waves == solo.waves
         _assert_state_equal({k: v.cpu() for k, v in solo.state.items()}, result.state)
+
+
+# ---------------------------------------------------------------------------
+# the decision kernel (csrc/decision.cu) against its plain version
+
+_PLANES = np.array([-(2**31), -(2**31) + 1, -2, -1, 0, 1, 2, 2**31 - 2, 2**31 - 1], np.int32)
+
+
+def _atoms(seed: int, N: int, I: int, R: int, K: int):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 4, (I, R, K)).astype(np.int32),
+            rng.choice(_PLANES, (I, R, K, 2)), rng.choice(_PLANES, (I, R, K, 2)),
+            rng.integers(0, 4, (I, R, K)).astype(np.int32),
+            rng.choice(_PLANES, (N, I, 2)), rng.random((N, I)) < 0.8)
+
+
+@pytest.mark.parametrize("N,I,R,K", [(1000, 2, 8, 4), (777, 3, 40, 2), (0, 2, 5, 3),
+                                     (300, 1, 1, 1), (2048, 4, 512, 4), (513, 2, 33, 7),
+                                     (256, 0, 9, 2), (256, 2, 9, 0)])
+def test_decision_kernel_matches_plain(cuda, N, I, R, K):
+    arrays = [torch.from_numpy(np.array(a)).to(cuda) for a in _atoms(N + R, N, I, R, K)]
+    got = D.evaluate_batch(*arrays)
+    want = D._evaluate_batch(*arrays)
+    for name, a, b in zip(("m", "selected", "counts"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), f"{name} differs at {(a != b).nonzero()[:5].tolist()}"
+
+
+def test_decision_launch_counts(cuda):
+    arrays = [torch.from_numpy(np.array(a)).to(cuda) for a in _atoms(1, 64, 2, 8, 4)]
+    A.reset_launch_counts()
+    D.evaluate_batch(*arrays)
+    D._evaluate_batch(*arrays)
+    D.evaluate_batch(*arrays[:4], arrays[4][:0], arrays[5][:0])  # N = 0: no launch
+    assert A.launch_counts()["decision"] == 1
+
+
+@pytest.mark.parametrize("hit,agg", [("FIRST", ""), ("UNIQUE", ""), ("ANY", ""),
+                                     ("RULE ORDER", ""), ("COLLECT", ""), ("COLLECT", "SUM"),
+                                     ("COLLECT", "MIN"), ("COLLECT", "MAX"),
+                                     ("COLLECT", "COUNT")])
+def test_batch_evaluate_on_card_equals_cpu(cuda, hit, agg):
+    table = D.compile_decision_table(parse_dmn_xml(W.dmn_band_xml(hit, agg)).decisions["band"])
+    contexts = W.dmn_band_contexts(5000) + [{}, {"amount": None, "tier": "gold"},
+                                            {"amount": True, "tier": "bronze"}]
+    assert D.batch_evaluate(table, contexts, device=cuda) == \
+        D.batch_evaluate(table, contexts, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the fault seam on the card
+
+
+@pytest.fixture
+def clean_plane():
+    kb.install_device_chaos(None)
+    reset_shared_device_health()
+    yield
+    kb.install_device_chaos(None)
+    reset_shared_device_health()
+
+
+def _serving_group(cuda, n: int, seed: int):
+    tables = kb.deploy([W.to_xml(W.mixed_definitions())])
+    rng = np.random.default_rng(seed)
+    insts = [kb.GroupInstance(idx=i, definition=int(rng.integers(0, 8)),
+                              slots={"x": A.pack_slot_values(
+                                  np.float64(rng.integers(0, 60))).tolist()})
+             for i in range(n)]
+    arrays, I, T = kb.build_group_arrays(tables, insts)
+    return tables, A.DeviceTables.from_numpy(tables, cuda), kb.group_state(arrays, cuda), I, T
+
+
+def test_shadow_on_card_matches_the_oracle(cuda, clean_plane):
+    tables, dt, state, I, T = _serving_group(cuda, 300, 1)
+    defense = kb.DeviceDefense()
+    defense.health.cfg.shadow_sample_rate = 1.0
+    out = kb.run_group(dt, tables.kernel_config, state, I, T, defense=defense)
+    want = kb.run_group(dt, tables.kernel_config, state, I, T)
+    assert out.fail_reason is None and defense.shadow_quarantined == 0
+    assert defense.health.shadow_checks == 1 and defense.health.state == HEALTHY
+    assert len(out.steps) == len(want.steps)
+    _assert_state_equal(out.state, want.state)
+
+
+def test_wedge_on_card_is_typed_and_the_next_group_runs(cuda, clean_plane):
+    tables, dt, state, I, T = _serving_group(cuda, 300, 2)
+    defense = kb.DeviceDefense()
+    defense.health.cfg.dispatch_timeout_ms = 50
+    kb.install_device_chaos(DeviceChaosController(
+        DeviceFaultPlan(seed=1, stall_p=1.0, stall_ms=300), "t"))
+    out = kb.run_group(dt, tables.kernel_config, state, I, T, defense=defense)
+    assert out.fail_reason == "device-wedged" and defense.health.state == SUSPECT
+    kb.install_device_chaos(None)
+    again = kb.run_group(dt, tables.kernel_config, state, I, T, defense=defense)
+    assert again.fail_reason is None

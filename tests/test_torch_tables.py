@@ -175,9 +175,10 @@ COPIED = ("feel/temporal.py", "feel/feel.py", "feel/__init__.py", "models/bpmn/m
 
 def as_copied(ref: str) -> str:
     """The reference's text as the port copies it: the package name in its
-    imports renamed, and the reference's "(ISSUE n)" history tags left out
-    of comments and docstrings."""
-    return re.sub(r" ?\(ISSUE \d+\)", "", ref.replace("zeebe_tpu.", "zeebe_tpu_torch."))
+    imports renamed, and the reference's history tags ("(ISSUE n)", "PR n")
+    left out of comments and docstrings."""
+    text = ref.replace("zeebe_tpu.", "zeebe_tpu_torch.")
+    return re.sub(r" ?(?:by )?\(?\b(?:ISSUE|PR) \d+(?: satellite)?\)?", "", text)
 
 
 @pytest.mark.parametrize("path", COPIED)

@@ -14,14 +14,24 @@ Layer map:
 - ``ops.automaton``       the lock-step automaton: plain PyTorch versions and
                           the wrappers that launch the CUDA kernels
 - ``ops.kernels``         build (nvcc, sm_90a) and ctypes binding of
-                          ``csrc/automaton.cu``
+                          ``csrc/automaton.cu`` and ``csrc/decision.cu``
 - ``ops.parity``          step-event decoding into per-instance intents
+- ``ops.decision``        DMN decision tables compiled to atom arrays (host
+                          compiler copied) and batch-evaluated: the plain
+                          version and the wrapper of the decision kernel
+- ``dmn``                 the host DMN evaluator (copy)
 - ``engine.eligibility``  element and definition eligibility reasons (copy)
 - ``engine.kernel_backend``  the registry (shared table set per partition,
                           call/MI inlining, content fingerprint; copied) and
                           the device half of the serving path: group arrays,
-                          chunked runs with prefetch, instance traces, and
-                          partitions driven through a shared mesh runner
+                          chunked runs with prefetch, instance traces,
+                          partitions driven through a shared mesh runner, and
+                          the device-fault seam (watchdog, chaos hooks,
+                          containment, sampled shadow verification)
+- ``engine.device_health``  the device health ladder (copy)
+- ``control.audit``       the control_adjust audit record (copy)
+- ``testing.chaos_device``, ``testing.chaos_common``  seeded device chaos
+                          (copies)
 - ``parallel.mesh``       partitions as shard blocks of one card's batch:
                           the sharded step and its plain version
 - ``parallel.mesh_runner``  N partitions' groups in one sharded dispatch

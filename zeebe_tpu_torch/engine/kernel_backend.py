@@ -19,8 +19,15 @@ fetched (``run_group``), and each instance's route is traced from the packed
 step rows (``cascade_ops``) — the trace the record writer interprets.
 
 Instances come in as plain records (``GroupInstance``), not the reference's
-admission objects: admission, materialization into records and the shadow
-oracle are not part of this module.
+admission objects: admission and materialization into records are not part
+of this module.
+
+The device-fault seam (``DeviceDefense``, passed to ``run_group``): the
+device-chaos hooks at dispatch and fetch (``install_device_chaos``), the
+dispatch watchdog (``_watchdog_call`` on a bounded thread pool), containment
+of a failed dispatch or a wedge as a typed decline, and sampled shadow
+verification against the plain ``run_collect`` on the CPU, which feeds the
+health ladder (``engine.device_health``).
 
 ``drive_group`` runs one group through waves — each wave runs the device
 until it quiesces with every token parked, traces the wave, then completes
@@ -37,6 +44,7 @@ import dataclasses
 import logging
 import threading
 import time
+import zlib
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -57,6 +65,7 @@ from zeebe_tpu_torch.ops.automaton import (
     state_from_numpy,
     unpack_events,
 )
+from zeebe_tpu_torch.engine.device_health import SUSPECT, shared_device_health
 from zeebe_tpu_torch.engine.eligibility import esp_start_host_reason
 from zeebe_tpu_torch.feel.feel import Lit as _FeelLit
 from zeebe_tpu_torch.feel.feel import Var as _FeelVar
@@ -1057,7 +1066,9 @@ def _dispatch(dt: DeviceTables, state: dict, chunk: int, config, collect) -> _Ch
 
 
 def fetch_rows(chunk: _Chunk) -> np.ndarray:
-    """The one device→host ingestion point for a chunk's packed rows."""
+    """The one device→host ingestion point for a chunk's packed rows. It
+    only waits on the chunk's recorded event and reads the pinned rows, so
+    it may run on a watchdog thread: it enqueues nothing."""
     if chunk.ready is not None:
         chunk.ready.synchronize()
     return chunk.rows.numpy()
@@ -1071,34 +1082,71 @@ class GroupRun:
     fail_reason: str | None = None
 
 
+@dataclasses.dataclass
+class _PendingGroup:
+    """One group's device run as the fault seam sees it: the reference's
+    ``_PendingGroup`` without admission and materialization."""
+
+    dt: DeviceTables
+    config: Any
+    I: int
+    T: int
+    chunk_steps: int
+    max_steps: int
+    pipeline_chunks: bool
+    failed: bool = False
+    fail_reason: str | None = None
+    chunks_run: int = 0
+    # shadow groups keep host copies of the initial arrays (the oracle's
+    # start) and of every fetched chunk's rows; corrupt_tokens are chaos-
+    # ledger sequences the seam must report caught (shadow or containment)
+    shadow: bool = False
+    initial: dict | None = None
+    raw_rows: list = field(default_factory=list)
+    corrupt_tokens: list = field(default_factory=list)
+
+
 def run_group(dt: DeviceTables, config, state: dict, I: int, T: int,
               chunk_steps: int = CHUNK_STEPS, max_steps: int = MAX_STEPS,
-              pipeline_chunks: bool | None = None, collect=None) -> GroupRun:
+              pipeline_chunks: bool | None = None, collect=None,
+              defense: "DeviceDefense | None" = None) -> GroupRun:
     """Run the group's device loop until it quiesces: one dispatch and one
     host fetch per chunk of ``chunk_steps`` lock-steps. From the second
     chunk on (on CUDA), chunk k+1 is dispatched off chunk k's device state
     before chunk k's rows are fetched, so the device computes while the
     host decodes. The first chunk never prefetches: groups that quiesce at
     once would pay a wasted chunk. ``collect`` replaces ``run_collect``
-    (a checker passes the plain version to run it on the card)."""
+    (a checker passes the plain version to run it on the card).
+    ``defense`` runs the group through the device-fault seam (chaos hooks,
+    dispatch watchdog, containment, sampled shadow verification); without
+    it nothing of the seam runs."""
     collect = collect or run_collect
     if pipeline_chunks is None:
         pipeline_chunks = state["elem"].is_cuda
-    chunk = chunk_steps
-    FO = dt.out_target.shape[2]
+    pg = _PendingGroup(dt, config, I, T, chunk_steps, max_steps, pipeline_chunks)
+    if defense is not None:
+        return defense.run(pg, state, collect)
+    first = _dispatch(dt, state, chunk_steps, config, collect)
+    return _complete_device_run(pg, first, collect, lambda chunk, k: fetch_rows(chunk))
+
+
+def _complete_device_run(pg: _PendingGroup, cur: _Chunk, collect, fetch) -> GroupRun:
+    """The chunk loop behind the first dispatched chunk ``cur``; ``fetch``
+    (chunk, index) brings a chunk's rows to the host."""
+    chunk = pg.chunk_steps
+    T, I = pg.T, pg.I
+    FO = pg.dt.out_target.shape[2]
     steps: list[dict] = []
     overflow = False
-    cur = _dispatch(dt, state, chunk, config, collect)
     state = cur.state
     nxt = None
-    max_chunks = max(1, max_steps // chunk)
+    max_chunks = max(1, pg.max_steps // chunk)
     hit_quiescence = False
-    chunks_run = 0
     for k in range(max_chunks):
-        if pipeline_chunks and k >= 1 and k + 1 < max_chunks:
-            nxt = _dispatch(dt, state, chunk, config, collect)
-        flat = fetch_rows(cur)
-        chunks_run = k + 1
+        if pg.pipeline_chunks and k >= 1 and k + 1 < max_chunks:
+            nxt = _dispatch(pg.dt, state, chunk, pg.config, collect)
+        flat = fetch(cur, k)
+        pg.chunks_run = k + 1
         # per row: T*(2+FO) packed event ints + (active, overflow) tail
         events_host = flat[:, :-2].reshape(chunk, T, 2 + FO)
         active = flat[:, -2]
@@ -1115,15 +1163,341 @@ def run_group(dt: DeviceTables, config, state: dict, I: int, T: int,
         if nxt is not None:
             cur, nxt = nxt, None
         elif k + 1 < max_chunks:
-            cur = _dispatch(dt, state, chunk, config, collect)
+            cur = _dispatch(pg.dt, state, chunk, pg.config, collect)
         state = cur.state
     if not hit_quiescence:
-        logger.warning("kernel group did not quiesce in %d steps", max_steps)
-        return GroupRun(None, state, chunks_run, "no-quiesce")
+        pg.fail_reason = "no-quiesce"
+        logger.warning("kernel group did not quiesce in %d steps", pg.max_steps)
+        return GroupRun(None, state, pg.chunks_run, pg.fail_reason)
     if overflow:
+        pg.fail_reason = "token-overflow"
         logger.warning("kernel token pool overflow (T=%d)", T)
-        return GroupRun(None, state, chunks_run, "token-overflow")
-    return GroupRun(steps, state, chunks_run)
+        return GroupRun(None, state, pg.chunks_run, pg.fail_reason)
+    return GroupRun(steps, state, pg.chunks_run)
+
+
+# ---------------------------------------------------------------------------
+# the device-fault seam
+
+
+class DeviceWedgedError(RuntimeError):
+    """A device dispatch/fetch exceeded the per-dispatch watchdog deadline
+    (``ZEEBE_BROKER_DEVICE_DISPATCHTIMEOUTMS``) — the gray-failure shape a
+    slow-but-alive device tunnel produces. Contained exactly like a
+    dispatch exception: the group is abandoned and host re-executed."""
+
+
+#: the device-chaos seam: ``testing/chaos_device.py`` installs a
+#: controller here (worker entry, from ``ZEEBE_CHAOS_DEVICE``); the dispatch
+#: path consults it with ONE is-None check per group when chaos is off
+_DEVICE_CHAOS = None
+
+
+def install_device_chaos(controller) -> None:
+    """Install (or, with None, remove) the process-wide device-fault
+    controller consulted at the kernel dispatch seam."""
+    global _DEVICE_CHAOS
+    _DEVICE_CHAOS = controller
+
+
+def device_chaos():
+    return _DEVICE_CHAOS
+
+
+class _WatchdogWorker:
+    """One reusable daemon thread of the dispatch-watchdog pool. A worker
+    abandoned by a deadline miss keeps blocking on the wedged ``fn`` — but
+    instead of dying (and leaking, one thread per expired dispatch, the
+    old behavior) it re-idles ITSELF when the wedged call finally
+    returns, so a bounded pool serves any number of wedges."""
+
+    def __init__(self, pool: "_WatchdogPool") -> None:
+        import queue
+        import threading
+
+        self._pool = pool
+        self._tasks: "queue.Queue" = queue.Queue()
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="device-dispatch-watchdog")
+        self._thread.start()
+
+    def submit(self, fn, box: dict, done) -> None:
+        self._tasks.put((fn, box, done))
+
+    def _loop(self) -> None:
+        while True:
+            fn, box, done = self._tasks.get()
+            try:
+                box["value"] = fn()
+            except BaseException as exc:  # noqa: BLE001 — re-raised on caller
+                box["error"] = exc
+            done.set()
+            # re-idle AFTER the task finishes — a deadline-missed caller
+            # already walked away, so this is what un-leaks a wedge; the
+            # pool drops us when already at capacity and the thread exits
+            if not self._pool.release(self):
+                return
+
+
+class _WatchdogPool:
+    """Bounded free-list of :class:`_WatchdogWorker` threads."""
+
+    MAX_IDLE = 8
+
+    def __init__(self) -> None:
+        import threading
+
+        self._idle: list[_WatchdogWorker] = []
+        self._lock = threading.Lock()
+
+    def acquire(self) -> _WatchdogWorker:
+        with self._lock:
+            if self._idle:
+                return self._idle.pop()
+        return _WatchdogWorker(self)
+
+    def release(self, worker: _WatchdogWorker) -> bool:
+        with self._lock:
+            if len(self._idle) < self.MAX_IDLE:
+                self._idle.append(worker)
+                return True
+        return False
+
+
+_WATCHDOG_POOL = _WatchdogPool()
+
+
+def _watchdog_call(fn, deadline_s: float):
+    """Run ``fn`` on a pooled daemon thread with a deadline — the dispatch
+    watchdog. A deadline miss raises :class:`DeviceWedgedError` while the
+    pooled worker keeps blocking on the wedged call; when that call
+    eventually returns the worker re-idles itself, so repeated wedges
+    reuse a bounded pool instead of leaking one thread per expiry."""
+    import threading
+
+    box: dict = {}
+    done = threading.Event()
+    worker = _WATCHDOG_POOL.acquire()
+    worker.submit(fn, box, done)
+    if not done.wait(deadline_s):
+        raise DeviceWedgedError(
+            f"device dispatch exceeded the {deadline_s * 1000:.0f}ms "
+            f"watchdog deadline (wedged or badly degraded device)")
+    if "error" in box:
+        raise box["error"]
+    return box["value"]
+
+
+class DeviceDefense:
+    """What the reference's ``KernelBackend`` keeps for the device-fault
+    seam, for one partition: the shared health ladder, the shadow sampling
+    sequence, the partition id (it seeds the sampling stream), and the
+    counts of shadow-quarantined and declined groups. ``run_group(...,
+    defense=...)`` runs a group through it.
+
+    Containment returns a failed group as a typed ``fail_reason``
+    (``device-dispatch-error``, ``device-wedged``) and never re-runs it: the
+    port has no sequential engine to hand it to yet. A shadow mismatch is
+    declined the same way (``device-shadow-mismatch``): the device result is
+    quarantined and the oracle's is not returned in its place, so a wrong
+    kernel surfaces as a decline rather than being patched by the plain
+    version.
+
+    A wedge abandons the group's chunks: the one in flight and a prefetched
+    one are never fetched, and their references are dropped. The pooled
+    watchdog thread finishes its stale wait and re-idles; the device runs
+    the abandoned chunks to their end in stream order, ahead of any later
+    group's work."""
+
+    def __init__(self, partition_id: int = 0, health=None) -> None:
+        self.health = health if health is not None else shared_device_health()
+        self._shadow_seq = 0
+        self.partition = partition_id
+        #: groups whose device result a shadow mismatch quarantined
+        #: (declined as ``device-shadow-mismatch``)
+        self.shadow_quarantined = 0
+        #: groups declined (containment or a typed device-run decline)
+        self.fallbacks = 0
+        #: wall seconds spent in the shadow oracle
+        self.shadow_seconds = 0.0
+        self._host_tables_of: tuple | None = None
+
+    @property
+    def shadow_sample_rate(self) -> float:
+        return self.health.cfg.shadow_sample_rate
+
+    @property
+    def dispatch_timeout_ms(self) -> int:
+        return self.health.cfg.dispatch_timeout_ms
+
+    def run(self, pg: _PendingGroup, state: dict, collect) -> GroupRun:
+        # shadow sampling decided BEFORE dispatch: only sampled groups pay
+        # the host copies of the initial arrays and of the fetched rows
+        pg.shadow = self._shadow_sampled()
+        if pg.shadow:
+            # the oracle's start: the group's true initial state, copied
+            # before anything is dispatched
+            pg.initial = {k: v.to("cpu", copy=True) for k, v in state.items()}
+        try:
+            chaos = _DEVICE_CHAOS
+            if chaos is not None:
+                chaos.dispatch_fault()
+            first = _dispatch(pg.dt, state, pg.chunk_steps, pg.config, collect)
+        except Exception as exc:  # noqa: BLE001 — containment: a device
+            # failure (chaos-injected or real) becomes a typed decline
+            self._contain_device_failure(pg, exc, where="dispatch")
+            return self._decline(pg, state)
+        try:
+            run = _complete_device_run(pg, first, collect,
+                                       lambda chunk, k: self._fetch_rows(pg, chunk, k))
+        except Exception as exc:  # noqa: BLE001 — containment: a mid-group
+            # fetch failure or watchdog-expired stall abandons the group
+            self._contain_device_failure(pg, exc, where="fetch")
+            return self._decline(pg, state)
+        steps = run.steps
+        if steps is not None and pg.shadow:
+            steps = self._verify_steps(pg, steps)
+        if steps is None:
+            return self._decline(pg, state if pg.failed else run.state)
+        self.health.note_group_ok()
+        return GroupRun(steps, run.state, run.chunks_run)
+
+    def _decline(self, pg: _PendingGroup, state: dict) -> GroupRun:
+        """A declined group: counted, and any chaos corruption it carried
+        reported caught by containment (its rows are discarded)."""
+        self.fallbacks += 1
+        chaos = _DEVICE_CHAOS
+        if chaos is not None and pg.corrupt_tokens:
+            for token in pg.corrupt_tokens:
+                chaos.note_caught(token, "contained")
+            pg.corrupt_tokens = []
+        return GroupRun(None, state, pg.chunks_run, pg.fail_reason)
+
+    def _fetch_rows(self, pg: _PendingGroup, chunk: _Chunk, chunk_index: int) -> np.ndarray:
+        """Every fetched chunk passes through here before decode: the chaos
+        seam (stalls, partial-chunk failures, result corruption) and the
+        dispatch watchdog live here; shadow groups keep a copy of the rows."""
+        chaos = _DEVICE_CHAOS
+
+        def fetch():
+            if chaos is not None:
+                chaos.fetch_fault(chunk_index)
+            return fetch_rows(chunk)
+
+        deadline_ms = self.dispatch_timeout_ms
+        # the watchdog thread-hop is paid only on the card (pipelined
+        # chunks: a device can wedge) or under the chaos plane
+        if deadline_ms > 0 and (chaos is not None or pg.pipeline_chunks):
+            flat = _watchdog_call(fetch, deadline_ms / 1000.0)
+        else:
+            flat = fetch()
+        if chaos is not None or pg.shadow:
+            # a copy: on the CPU the rows are the packed output itself and
+            # .numpy() shares its memory; corruption and the shadow
+            # comparison must never touch or alias it
+            flat = np.array(flat)
+        if chaos is not None:
+            token = chaos.corrupt_rows(flat, chunk_index)
+            if token is not None:
+                pg.corrupt_tokens.append(token)
+        if pg.shadow:
+            pg.raw_rows.append(flat)
+        return flat
+
+    def _contain_device_failure(self, pg: _PendingGroup, exc, where: str) -> None:
+        """A dispatch exception or a watchdog-expired stall declines the group
+        with a TYPED reason and the health ladder hears about it; ``_decline``
+        reports any chaos corruption riding the group caught (its rows are
+        discarded)."""
+        kind = ("device-wedged" if isinstance(exc, DeviceWedgedError)
+                else "device-dispatch-error")
+        pg.failed = True
+        pg.fail_reason = kind
+        logger.warning("device failure contained at %s (%s): %r — group declined",
+                       where, kind, exc)
+        self.health.note_fault(kind, detail=f"{where}: {exc!r}"[:200])
+
+    def _shadow_sampled(self) -> bool:
+        """Deterministic seeded sampling stream for shadow verification:
+        one decision per dispatched group, boosted while SUSPECT. Counter-
+        hash based, as the reference's (the same crc32 formula)."""
+        rate = self.shadow_sample_rate
+        if rate <= 0:
+            return False
+        cfg = self.health.cfg
+        if self.health.state == SUSPECT:
+            rate = min(1.0, rate * cfg.suspect_shadow_boost)
+        if rate >= 1.0:
+            return True
+        self._shadow_seq += 1
+        h = zlib.crc32(f"{cfg.shadow_seed}:{self.partition}:"
+                       f"{self._shadow_seq}".encode("ascii"))
+        return (h % 1_000_000) < rate * 1_000_000
+
+    def _host_tables(self, dt: DeviceTables) -> DeviceTables:
+        """The group's tables on the CPU (the last set is kept)."""
+        if self._host_tables_of is None or self._host_tables_of[0] is not dt:
+            host = DeviceTables(**{f.name: getattr(dt, f.name).cpu()
+                                   for f in dataclasses.fields(DeviceTables)})
+            self._host_tables_of = (dt, host)
+        return self._host_tables_of[1]
+
+    def _shadow_execute(self, pg: _PendingGroup):
+        """Re-execute the group on the CPU with the plain ``run_collect``
+        from the host copies of its initial arrays, through the same chunk
+        loop and chunking but without the chaos and watchdog seam (the
+        oracle must not be faultable). Returns the oracle's rows per chunk;
+        raises when the oracle itself does not finish the group."""
+        dt = self._host_tables(pg.dt)
+        oracle = _PendingGroup(dt, pg.config, pg.I, pg.T, pg.chunk_steps, pg.max_steps,
+                               pipeline_chunks=False)
+        rows: list[np.ndarray] = []
+
+        def fetch(chunk: _Chunk, k: int) -> np.ndarray:
+            rows.append(fetch_rows(chunk))
+            return rows[-1]
+
+        first = _dispatch(dt, pg.initial, pg.chunk_steps, pg.config, run_collect)
+        run = _complete_device_run(oracle, first, run_collect, fetch)
+        if run.fail_reason is not None:
+            raise RuntimeError(f"shadow oracle failed: {run.fail_reason}")
+        return rows
+
+    def _verify_steps(self, pg: _PendingGroup, steps):
+        """Sampled shadow verification: the device's fetched rows against the
+        oracle's, byte for byte, before the steps are returned. On mismatch
+        the device result is quarantined: the group is declined as
+        ``device-shadow-mismatch`` and the ladder latches SUSPECT. Returns
+        the steps (None: decline)."""
+        health = self.health
+        health.note_shadow_check()
+        t0 = time.perf_counter()
+        try:
+            shadow_rows = self._shadow_execute(pg)
+        except Exception as exc:  # noqa: BLE001 — oracle failure: decline
+            # the group rather than return an unverified device result
+            self._contain_device_failure(pg, exc, where="shadow")
+            return None
+        self.shadow_seconds += time.perf_counter() - t0
+        rows = pg.raw_rows
+        match = (len(rows) == len(shadow_rows)
+                 and all(np.array_equal(a, b) for a, b in zip(rows, shadow_rows)))
+        if match:
+            return steps
+        chaos = _DEVICE_CHAOS
+        if chaos is not None and pg.corrupt_tokens:
+            for token in pg.corrupt_tokens:
+                chaos.note_caught(token, "shadow")
+            pg.corrupt_tokens = []
+        self.shadow_quarantined += 1
+        health.note_shadow_mismatch(
+            detail=f"I={pg.I} T={pg.T} deviceChunks={len(rows)} "
+                   f"oracleChunks={len(shadow_rows)}")
+        logger.warning("shadow verification MISMATCH (I=%d T=%d): device result "
+                       "quarantined, group declined", pg.I, pg.T)
+        pg.failed = True
+        pg.fail_reason = "device-shadow-mismatch"
+        return None
 
 
 def cascade_ops(tables: ProcessTables, inst: GroupInstance, steps: list[dict]) -> list:
@@ -1259,10 +1633,11 @@ class GroupResult:
 def drive_group(tables: ProcessTables, dt: DeviceTables, insts: list[GroupInstance],
                 device=None, chunk_steps: int = CHUNK_STEPS, max_steps: int = MAX_STEPS,
                 max_group: int = MAX_GROUP, max_waves: int = 64,
-                collect=None) -> GroupResult:
+                collect=None, defense: DeviceDefense | None = None) -> GroupResult:
     """Run one group through job-completion waves and trace every wave.
     Raises when the group does not fit the packing bounds, does not
-    quiesce, or overflows its token pool. ``collect`` as for run_group."""
+    quiesce, overflows its token pool, or (with ``defense``) is declined by
+    the fault seam. ``collect`` and ``defense`` as for run_group."""
     built = build_group_arrays(tables, insts, max_group)
     if built is None:
         raise ValueError("group geometry exceeds the event packing bounds")
@@ -1274,7 +1649,8 @@ def drive_group(tables: ProcessTables, dt: DeviceTables, insts: list[GroupInstan
     run_seconds = 0.0
     for _ in range(max_waves):
         t0 = time.perf_counter()
-        run = run_group(dt, config, state, I, T, chunk_steps, max_steps, collect=collect)
+        run = run_group(dt, config, state, I, T, chunk_steps, max_steps, collect=collect,
+                        defense=defense)
         run_seconds += time.perf_counter() - t0
         if run.fail_reason is not None:
             raise RuntimeError(f"group run failed: {run.fail_reason}")

@@ -1,11 +1,13 @@
-"""Build and bind the automaton's CUDA kernels (``csrc/automaton.cu``).
+"""Build and bind the port's CUDA kernels (``csrc/automaton.cu``, the
+automaton, and ``csrc/decision.cu``, DMN decision-table matching).
 
-The source is compiled at first use with ``nvcc -gencode
-arch=compute_90a,code=sm_90a`` into a shared library with a plain C
-interface, loaded with ``ctypes``. The library lands in ``build/
-zeebe_tpu_torch/`` at the root of the checkout, named by a digest of the
-source and flags, so a changed source rebuilds. Nothing is built or imported
-from CUDA when this module is imported.
+The sources are compiled at first use with ``nvcc -gencode
+arch=compute_90a,code=sm_90a``, one ``nvcc`` per source started together,
+and linked into one shared library with a plain C interface, loaded with
+``ctypes``. The library lands in ``build/zeebe_tpu_torch/`` at the root of
+the checkout, named by a digest of every source and the flags, so a change
+to any source rebuilds. Nothing is built or imported from CUDA when this
+module is imported.
 
 Launch protocol: the wrapper allocates the working state (``torch.empty``)
 and one int32 scratch buffer, then ``zt_prepare`` copies the caller's state
@@ -33,10 +35,11 @@ from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "automaton.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = (CSRC / "automaton.cu", CSRC / "decision.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "zeebe_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 # KernelConfig bits and run modes (csrc/automaton.cu)
 CFG_JOINS, CFG_CONDITIONS, CFG_SCOPES, CFG_MI = 1, 2, 4, 8
@@ -46,6 +49,8 @@ SCAN_TILE = 4096
 # run_to_completion enqueues this many steps between reads of the loop flag
 COMPLETION_BLOCK_STEPS = 8
 MAX_FANOUT = 32  # take and condition masks ride 32-bit words
+# the decision kernel stages 32 rules x K atoms of 24 bytes in shared memory
+DECISION_MAX_ATOMS = 64
 
 # Kernel launches, counted where they are enqueued: "step" counts every
 # lock-step of an unsharded run (those inside run_collect and
@@ -53,8 +58,9 @@ MAX_FANOUT = 32  # take and condition masks ride 32-bit words
 # per call. "sharded_step" counts every lock-step of a sharded run (one
 # launch per phase over all shards; those inside sharded_collect too) and
 # "sharded_collect" one per call.
+# "decision" counts one per decision-table batch (zt_decision).
 LAUNCHES = {"step": 0, "run_collect": 0, "run_to_completion": 0,
-            "sharded_step": 0, "sharded_collect": 0}
+            "sharded_step": 0, "sharded_collect": 0, "decision": 0}
 
 
 class KernelBuildError(RuntimeError):
@@ -110,32 +116,46 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libzt_automaton_{digest.hexdigest()[:16]}.so"
+    digest = hashlib.sha256()
+    for source in SOURCES:
+        digest.update(source.name.encode() + b"\0" + source.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libzt_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels if this source has no library yet; returns its
-    path. Safe against concurrent builders: each compiles to a private file
-    and renames it into place."""
+    """Compile the kernels if these sources have no library yet; returns its
+    path. Each source compiles to an object in its own ``nvcc``, all started
+    together, then one ``nvcc -shared`` links them. Safe against concurrent
+    builders: each builds in a private directory and renames the library
+    into place."""
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as exc:
-        os.unlink(tmp)
-        raise KernelBuildError(f"cannot run nvcc: {exc}") from exc
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [str(Path(tmp) / f"{source.stem}.o") for source in SOURCES]
+        try:
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj,
+                                       str(source)], stderr=subprocess.PIPE, text=True)
+                     for source, obj in zip(SOURCES, objects)]
+        except OSError as exc:  # every source uses the same nvcc: none started
+            raise KernelBuildError(f"cannot run nvcc: {exc}") from exc
+        errs = [proc.communicate()[1] for proc in procs]
+        for source, proc, err in zip(SOURCES, procs, errs):
+            if proc.returncode != 0:
+                raise KernelBuildError(f"nvcc {source.name} failed ({proc.returncode}):\n"
+                                       f"{err[-4000:]}")
+        out = str(Path(tmp) / lib.name)
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objects],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(f"nvcc link failed ({proc.returncode}):\n"
+                                   f"{proc.stderr[-4000:]}")
+        if verbose:
+            print("".join(errs) + proc.stderr, end="")
+        os.replace(out, lib)
     return lib
 
 
@@ -153,24 +173,30 @@ class _Lib:
         lib.zt_steps.restype = ctypes.c_int
         lib.zt_combine.argtypes = [ptr(_State), ptr(_State), _P, _P, _P, _P, _P]
         lib.zt_combine.restype = ctypes.c_int
+        lib.zt_decision.argtypes = [_P] * 6 + [_I] * 4 + [_P] * 4
+        lib.zt_decision.restype = ctypes.c_int
+        lib.zt_decision_max_atoms.restype = ctypes.c_int
         lib.zt_scan_tile.restype = ctypes.c_int
         lib.zt_ctl_stride.restype = ctypes.c_int
         if lib.zt_scan_tile() != SCAN_TILE or lib.zt_ctl_stride() != CTL_N:
             raise KernelBuildError("scan tile or control stride of the library "
                                    "differs from the binding")
+        if lib.zt_decision_max_atoms() != DECISION_MAX_ATOMS:
+            raise KernelBuildError("the decision kernel's atom limit differs from "
+                                   "the binding")
         self.lib = lib
 
 
-_LOADED: dict[Path, _Lib] = {}
+_LOADED: _Lib | None = None
 
 
 def load() -> _Lib:
-    """Build (if needed) and load the library; one load per process."""
-    path = build()
-    lib = _LOADED.get(path)
-    if lib is None:
-        lib = _LOADED[path] = _Lib(path)
-    return lib
+    """Build (if needed) and load the library, once per process: the
+    sources are read and hashed at the first call only, not per launch."""
+    global _LOADED
+    if _LOADED is None:
+        _LOADED = _Lib(build())
+    return _LOADED
 
 
 def _check(code: int, what: str) -> None:
@@ -398,3 +424,40 @@ def run_until_quiet(tables, state: dict, max_steps: int, config, auto_jobs: bool
             break
     steps = run.ctl[0, CTL_STEPS].clone()
     return run.state, steps
+
+
+def run_decision(kind: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                 flags: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor):
+    """The reference's ``_evaluate_batch`` on the card: atoms ``kind``,
+    ``flags`` [I, R, K] and ``lo``, ``hi`` [I, R, K, 2] (int32), context keys
+    [N, I, 2] (int32) and validity [N, I] (bool) → (m [N, R] bool, selected
+    [N] int32, counts [N] int32). N = 0 launches nothing."""
+    device = keys.device
+    if kind.dim() != 3:
+        raise ValueError(f"kind must be [I, R, K], got {tuple(kind.shape)}")
+    I, R, K = kind.shape
+    N = keys.shape[0]
+    i32 = torch.int32
+    _require(kind, "kind", i32, (I, R, K), device)
+    _require(flags, "flags", i32, (I, R, K), device)
+    _require(lo, "lo", i32, (I, R, K, 2), device)
+    _require(hi, "hi", i32, (I, R, K, 2), device)
+    _require(keys, "keys", i32, (N, I, 2), device)
+    _require(valid, "valid", torch.bool, (N, I), device)
+    if R < 1:
+        raise ValueError("a decision table needs at least one rule")
+    if K > DECISION_MAX_ATOMS:
+        raise ValueError(f"{K} atoms per cell exceed the kernel's {DECISION_MAX_ATOMS}")
+    m = torch.empty((N, R), dtype=torch.bool, device=device)
+    counts = torch.empty(N, dtype=i32, device=device)
+    selected = torch.empty(N, dtype=i32, device=device)
+    if N == 0:
+        return m, selected, counts
+    lib = load()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _check(lib.lib.zt_decision(kind.data_ptr(), flags.data_ptr(), lo.data_ptr(),
+                               hi.data_ptr(), keys.data_ptr(), valid.data_ptr(), N, I, R, K,
+                               m.data_ptr(), counts.data_ptr(), selected.data_ptr(), stream),
+           "zt_decision")
+    LAUNCHES["decision"] += 1
+    return m, selected, counts

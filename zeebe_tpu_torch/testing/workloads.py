@@ -4,10 +4,13 @@ Copies of the builders in the repository's ``bench.py`` (one_task,
 exclusive_chain, fork_join, ten_tasks, ten_tasks_io, subprocess_boundary and
 the 8-definition mixed_definitions set), on this package's fluent builder.
 Each returns a ``ProcessModel``; ``to_xml`` serializes a set of them as the
-BPMN resource a deployment carries.
+BPMN resource a deployment carries. ``dmn_band_xml`` is the DMN decision
+table of ``bench.py``'s ``run_dmn_batch``.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from zeebe_tpu_torch.models.bpmn import Bpmn, to_bpmn_xml
 
@@ -137,3 +140,34 @@ def mixed_definitions():
 def to_xml(models) -> str:
     """BPMN XML resource holding ``models``."""
     return to_bpmn_xml(list(models))
+
+
+def dmn_band_xml(hit_policy: str = "FIRST", aggregation: str = "") -> str:
+    """``run_dmn_batch``'s decision "band": 8 rules over ``amount`` (numeric,
+    ``[10i..10i+9]``) and ``tier`` (``"gold"`` on odd rules, else any), rule
+    i outputting i. The benchmark's table is FIRST with no aggregation."""
+    rules = "".join(
+        f'<rule id="r{i}">'
+        f"<inputEntry><text>[{i * 10}..{i * 10 + 9}]</text></inputEntry>"
+        f'<inputEntry><text>{"&quot;gold&quot;" if i % 2 else "-"}</text></inputEntry>'
+        f"<outputEntry><text>{i}</text></outputEntry></rule>"
+        for i in range(8)
+    )
+    agg = f' aggregation="{aggregation}"' if aggregation else ""
+    return f"""<?xml version="1.0" encoding="UTF-8"?>
+<definitions xmlns="https://www.omg.org/spec/DMN/20191111/MODEL/"
+             id="b" name="b" namespace="bench">
+  <decision id="band" name="band"><decisionTable hitPolicy="{hit_policy}"{agg}>
+    <input id="i1"><inputExpression><text>amount</text></inputExpression></input>
+    <input id="i2"><inputExpression><text>tier</text></inputExpression></input>
+    <output id="o1" name="band"/>{rules}
+  </decisionTable></decision>
+</definitions>"""
+
+
+def dmn_band_contexts(n: int, seed: int = 7) -> list[dict]:
+    """``run_dmn_batch``'s contexts: ``amount`` uniform in [0, 90), ``tier``
+    gold or silver, from ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return [{"amount": float(a), "tier": "gold" if g else "silver"}
+            for a, g in zip(rng.uniform(0, 90, n), rng.integers(0, 2, n))]
