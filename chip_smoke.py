@@ -49,11 +49,35 @@ exit) if any phase fails:
    wedges;
 10. prints the kernels line (JSON), then the card line, then the result line.
 
+Two paths run the automaton's steps (``ops/kernels.py``): the fused chunk,
+one thread-block cluster per shard and ONE launch per chunk, for shards of
+up to ``kernels.FUSED_MAX_TOKENS`` token slots (the serving geometry), and
+the chain of per-phase launches above that and for run_to_completion.
+Phases 3 and 6 hold both (the chain forced with ``path="chain"``) byte-equal
+to the plain version, including chunks that go quiet before their last
+step; phases 4 and 7 check that every serving chunk was one fused grid
+launch. Beside them:
+
+- phase 2 prints the fused kernel's registers and spills (``-Xptxas -v``)
+  and ``cudaOccupancyMaxActiveClusters``; 8 shard clusters must fit;
+- a ``torch.profiler`` window over two of phase 4's groups per path gives
+  kernel time by name and the kernels' busy share of the device loop;
+- the repeat phase runs the same fused chunk 50 times at I = 2048 and 50
+  times at 8 shards, each byte-equal to the plain version;
+- the A/B phase times the chain against the fused chunk in turns (chain,
+  fused, fused, chain): a lock-step back to back, a chunk per call (and its
+  host enqueue time), grid launches per chunk, the same at 8 shards, the
+  phase 4 groups' device-loop and slice transitions/s, and a lock-step and
+  a chunk at T = 8192, 16384, 32768 and 131072 (the shape rule's
+  threshold, ``kernels.FUSED_MAX_TOKENS``, lies where the chain starts to
+  win).
+
 Imports neither JAX nor the JAX package. Launch counts are zeroed right
 before each main path runs (phase 4 for step and run_collect, phase 5 for
 run_to_completion, phase 7 for sharded_step and sharded_collect, phase 8's
 ``batch_evaluate`` at the benchmark's geometry for decision) and read right
-after; comparison launches do not count.
+after; comparison launches do not count. Each entry of the kernels line
+names its path and its grid launches per call.
 """
 
 from __future__ import annotations
@@ -100,6 +124,11 @@ REPLACES = {
 }
 KERNELS = ("step", "run_collect", "run_to_completion", "sharded_step", "sharded_collect",
            "decision")
+# each kernel's path on its main path: the fused chunk (one cluster launch
+# per call, plus the counter combine for the sharded step), the chain of
+# per-phase launches, or (decision) one kernel of its own
+MAIN_PATH = {"step": "fused", "run_collect": "fused", "run_to_completion": "chain",
+             "sharded_step": "fused", "sharded_collect": "fused", "decision": None}
 N_SHARDS = 8
 
 
@@ -187,6 +216,62 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def chain_collect(dt, state: dict, n_steps: int, config):
+    """run_collect forced onto the chain (a ``collect`` for run_group)."""
+    return kernels.run_steps(dt, state, n_steps, config, auto_jobs=False, emit_events=True,
+                             mode="collect", path="chain")
+
+
+def fused_collect(dt, state: dict, n_steps: int, config):
+    """run_collect forced onto the fused chunk."""
+    return kernels.run_steps(dt, state, n_steps, config, auto_jobs=False, emit_events=True,
+                             mode="collect", path="fused")
+
+
+COLLECT = {"chain": chain_collect, "fused": fused_collect}
+AB_TURNS = ("chain", "fused", "fused", "chain")
+
+
+def lockstep_ms(dt, state: dict, config, path: str, num_shards: int = 1) -> float:
+    """One lock-step of a path back to back (auto jobs, no events): the
+    copy-in plus 16 steps less the copy-in plus 8, over 8, on buffers
+    allocated once (no wrapper work)."""
+    bits = kernels.MODE_AUTO_JOBS
+    run = kernels.allocate(dt, state, config, num_shards, sharded=num_shards > 1)
+
+    def steps(n):
+        if path == "fused":
+            return lambda: kernels.launch_fused(run, n, bits, None, 0)
+        return lambda: (kernels.launch_prepare(run, bits, None),
+                        kernels.launch_steps(run, n, bits, None, 0))
+
+    return (time_ms(steps(16), 20) - time_ms(steps(8), 20)) / 8
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host milliseconds per call to enqueue ``fn`` (no synchronization
+    inside the loop): the wrapper's Python and the launches' CPU side."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    out = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return out
+
+
+def pct(share: float | None) -> str:
+    return "not measured" if share is None else f"{100 * share:.2f}%"
+
+
+def grid_per_call(fn) -> int:
+    """CUDA grid launches one call enqueues (GRID_LAUNCHES, all paths)."""
+    A.reset_launch_counts()
+    fn()
+    return sum(A.grid_launch_counts().values())
+
+
 def group_setup(tables, I: int, T: int | None, rng, device):
     """A fresh group of I instances over every definition of ``tables``,
     with seeded condition variables; T by the group rule unless given."""
@@ -218,26 +303,38 @@ def phase_kernel_vs_plain(rng, dev) -> dict:
     runs = [(name, models, None) for name, models in sets.items()]
     runs.append(("fork_join_overflow", sets["fork_join"], 2048))
     worst = {"step": 0, "run_collect": 0}
+    mid_exits = 0  # chunks whose shard went quiet before their last step
     for name, models, T in runs:
         tables = compile_tables([transform(m) for m in models])
         dt = A.DeviceTables.from_numpy(tables, dev)
         config = tables.kernel_config
         state, T = group_setup(tables, 2048, T, rng, dev)
-        ks = ps = state
+        if kernels.choose_path(T) != "fused":
+            raise AssertionError(f"{name}: T={T} does not take the fused chunk")
+        ks = cs = ps = state
         chunks = 0
         for _ in range(24):
+            A.reset_launch_counts()
             ks, krows = A.run_collect(dt, ks, n_steps=8, config=config)
+            if A.grid_launch_counts() != {"fused": 1, "chain": 0, "combine": 0}:
+                raise AssertionError(f"{name}: run_collect was not one fused launch")
+            cs, crows = chain_collect(dt, cs, n_steps=8, config=config)
             ps, prows = A.run_collect_plain(dt, ps, n_steps=8, config=config)
             chunks += 1
-            err = max(max_abs_err({"rows": krows}, {"rows": prows}), max_abs_err(ks, ps))
+            err = max(max_abs_err({"rows": krows}, {"rows": prows}), max_abs_err(ks, ps),
+                      max_abs_err({"rows": crows}, {"rows": prows}), max_abs_err(cs, ps))
             worst["run_collect"] = max(worst["run_collect"], err)
             if err:
-                raise AssertionError(f"{name}: run_collect differs from plain (chunk {chunks})")
+                raise AssertionError(f"{name}: run_collect (fused or chain) differs from "
+                                     f"plain (chunk {chunks})")
+            quiet = torch.nonzero(krows[:, -2] == 0).flatten()
+            if quiet.numel() and int(quiet[0]) < krows.shape[0] - 1:
+                mid_exits += 1
             jobs = kb.parked_jobs(tables, ks)
             if jobs.size == 0 and int(krows[:, -2].eq(0).any()):
                 break
             if jobs.size:
-                ks, ps = A.complete_jobs(ks, jobs), A.complete_jobs(ps, jobs)
+                ks, cs, ps = (A.complete_jobs(x, jobs) for x in (ks, cs, ps))
         if name == "fork_join_overflow" and not bool(ks["overflow"]):
             raise AssertionError("forced overflow was not flagged")
         if name == "nomatch" and not bool(ks["incident"].any()):
@@ -245,18 +342,27 @@ def phase_kernel_vs_plain(rng, dev) -> dict:
         if name not in ("fork_join_overflow", "nomatch") and not bool(ks["done"].all()):
             raise AssertionError(f"{name}: not every instance completed")
         log(f"phase3 {name}: I=2048 T={T} chunks={chunks} rows and state byte-equal "
+            f"to plain on the fused path and the forced chain "
             f"(transitions={int(ks['transitions'])})")
-        # single steps with events, both job modes
+        # single steps with events, both job modes, both paths
         for auto_jobs in (False, True):
-            ks = ps = state
+            ks = cs = ps = state
             for _ in range(6):
                 ks, kev = A.step(dt, ks, auto_jobs=auto_jobs, emit_events=True, config=config)
+                cs, crows = kernels.run_steps(dt, cs, 1, config, auto_jobs=auto_jobs,
+                                              emit_events=True, mode="step", path="chain")
                 ps, pev = A.step_plain(dt, ps, auto_jobs=auto_jobs, emit_events=True,
                                        config=config)
-                err = max(max_abs_err(ks, ps), max_abs_err(kev, pev))
+                cev = A._unpack_events_tensor(crows[0, :-2].view(T, -1), 2048)
+                err = max(max_abs_err(ks, ps), max_abs_err(kev, pev), max_abs_err(cs, ps),
+                          max_abs_err(cev, pev))
                 worst["step"] = max(worst["step"], err)
                 if err:
-                    raise AssertionError(f"{name}: step differs from plain")
+                    raise AssertionError(f"{name}: step (fused or chain) differs from plain")
+    if mid_exits == 0:
+        raise AssertionError("no chunk of phase 3 went quiet before its last step")
+    log(f"phase3: {mid_exits} chunks left their loop before their last step (rows after "
+        f"the exit zero on both paths, as the plain version leaves them)")
     return worst
 
 
@@ -290,6 +396,10 @@ def phase_slice(rng, dev, card: str) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     launches = A.launch_counts()
+    grid = A.grid_launch_counts()
+    if grid != {"fused": launches["run_collect"], "chain": 0, "combine": 0}:
+        raise AssertionError(f"the serving chunks were not one fused launch each: {grid}, "
+                             f"{launches['run_collect']} run_collect calls")
     plain = [kb.drive_group(tables, dt, copy(g), device=dev, collect=A.run_collect_plain)
              for g in groups]
     transitions = 0
@@ -313,11 +423,62 @@ def phase_slice(rng, dev, card: str) -> dict:
         f"{[round(w * 1e3, 3) for w in walls]} ms; device loop per group "
         f"{[round(s * 1e3, 3) for s in run_s]} ms; "
         f"{transitions / wall:.1f} transitions/s end to end, "
-        f"{transitions / sum(run_s):.1f} transitions/s in the device loop")
+        f"{transitions / sum(run_s):.1f} transitions/s in the device loop; grid launches "
+        f"{grid} for {launches['run_collect']} chunks")
     return {"launches": launches, "tables": tables, "dt": dt, "groups": groups,
             "transitions_per_s": transitions / wall, "wall_per_group_ms": wall / 8 * 1e3,
             "decoded_steps": sum(r.steps for r in results),
             "device_loop_ms": sum(run_s) * 1e3}
+
+
+def slice_rates(info: dict, collect, dev) -> dict:
+    """The phase 4 groups once more through ``collect`` (not counted):
+    transitions/s over the wall and over the device loop."""
+    tables, dt = info["tables"], info["dt"]
+    transitions, wall, loop = 0, 0.0, 0.0
+    for g in info["groups"]:
+        t0 = time.perf_counter()
+        r = kb.drive_group(tables, dt, copy_group(g), device=dev, collect=collect)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        loop += r.run_seconds
+        transitions += int(r.state["transitions"])
+    return {"slice": transitions / wall, "loop": transitions / loop}
+
+
+def phase_profile(info: dict, dev, card: str) -> dict:
+    """A torch.profiler window over a steady part of phase 4 (two of its
+    groups once more, each path, after warm-up): kernel time by name and
+    the kernels' share of the device loop (time in run_group)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tables, dt = info["tables"], info["dt"]
+    out = {}
+    for path in ("fused", "chain"):
+        kb.drive_group(tables, dt, copy_group(info["groups"][0]), device=dev,
+                       collect=COLLECT[path])  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            runs = [kb.drive_group(tables, dt, copy_group(g), device=dev,
+                                   collect=COLLECT[path]) for g in info["groups"][1:3]]
+            torch.cuda.synchronize()
+        loop_ms = sum(r.run_seconds for r in runs) * 1e3
+        by_name = {}
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+                by_name[e.key] = by_name.get(e.key, 0.0) + e.device_time_total / 1e3
+        copies = sum(ms for k, ms in by_name.items() if "memcpy" in k.lower()
+                     or "memset" in k.lower())
+        kernel_ms = sum(by_name.values()) - copies
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        share = kernel_ms / loop_ms if loop_ms and kernel_ms else None
+        out[path] = {"kernel_ms": kernel_ms, "copy_ms": copies, "loop_ms": loop_ms,
+                     "share": share}
+        log(f"phase4 profile {path} [{card}]: 2 groups, device loop {loop_ms:.4f} ms, "
+            f"kernels {kernel_ms:.4f} ms ({pct(share)} busy), "
+            f"copies and sets {copies:.4f} ms; by name (ms) "
+            f"{[(k[:60], round(v, 4)) for k, v in top]}")
+    return out
 
 
 def phase_ceiling(dev, card: str) -> dict:
@@ -342,6 +503,7 @@ def phase_ceiling(dev, card: str) -> dict:
     if not bool(kf["done"].all()) or bool(kf["overflow"]):
         raise AssertionError("ceiling run incomplete or overflowed")
     ms = time_ms(lambda: A.run_to_completion(dt, state, max_steps=64, config=config), 5)
+    grid = grid_per_call(lambda: A.run_to_completion(dt, state, max_steps=64, config=config))
     plain_ms = time_ms(lambda: A.run_to_completion_plain(dt, state, max_steps=64,
                                                          config=config), 2)
     transitions = int(kf["transitions"])
@@ -360,7 +522,7 @@ def phase_ceiling(dev, card: str) -> dict:
         f"{ms:.3f} ms per call ({transitions / ms * 1e3:.1f} transitions/s), "
         f"plain {plain_ms:.3f} ms")
     return {"launches": launches, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "err": err, "step_ms": step_ms}
+            "err": err, "step_ms": step_ms, "grid_launches": grid}
 
 
 def serving_timings(slice_info: dict) -> dict:
@@ -377,6 +539,10 @@ def serving_timings(slice_info: dict) -> dict:
         "ms": time_ms(lambda: A.run_collect(dt, state, n_steps=8, config=config), 50),
         "plain_ms": time_ms(lambda: A.run_collect_plain(dt, state, n_steps=8,
                                                         config=config), 5),
+        "chain_ms": time_ms(lambda: chain_collect(dt, state, 8, config), 50),
+        "grid_launches": grid_per_call(lambda: A.run_collect(dt, state, n_steps=8,
+                                                             config=config)),
+        "chain_grid_launches": grid_per_call(lambda: chain_collect(dt, state, 8, config)),
     }
     _, rows = A.run_collect(dt, state, n_steps=8, config=config)
     out["run_collect"]["bound_ms"] = bound_ms(dt, state, config, nbytes([rows]))
@@ -385,14 +551,17 @@ def serving_timings(slice_info: dict) -> dict:
         "plain_ms": time_ms(lambda: A.step_plain(dt, state, auto_jobs=False,
                                                  config=config), 10),
         "bound_ms": bound_ms(dt, state, config),
+        # the lock-step alone, back to back, without the wrapper's host work
+        "device_ms": lockstep_ms(dt, state, config, "fused"),
+        "chain_ms": time_ms(lambda: kernels.run_steps(
+            dt, state, 1, config, auto_jobs=False, emit_events=False, mode="step",
+            path="chain"), 100),
+        "chain_device_ms": lockstep_ms(dt, state, config, "chain"),
+        "grid_launches": grid_per_call(lambda: A.step(dt, state, auto_jobs=False,
+                                                      config=config)),
     }
-    # the step kernels alone: back-to-back lock-steps on one prepared working
-    # state (auto jobs, no events), without the wrapper's per-call host work
-    bits = kernels.MODE_AUTO_JOBS
-    run = kernels.prepare(dt, state, config, bits, None)
-    out["step"]["device_ms"] = time_ms(
-        lambda: kernels.launch_steps(run, 8, bits, None, 0), 20) / 8
     out["geometry"] = f"I={I} T={T} E={tables.max_elements} FO={tables.out_target.shape[2]}"
+    out.update(dt=dt, config=config, state=state)
     out["step_bytes"] = moved_bytes(dt, state, config)
     out["chunk_bytes"] = moved_bytes(dt, state, config, nbytes([rows]))
     return out
@@ -486,14 +655,22 @@ def phase_sharded_vs_plain(rng, dev) -> dict:
     worst = {"sharded_step": 0, "sharded_collect": 0}
     collect = MR.MeshKernelRunner(mesh=M.make_mesh(N_SHARDS, dev))._sharded_collect(8, config)
 
-    # sharded collect, chunk by chunk with job waves
-    ks = ps = state
+    # sharded collect, chunk by chunk with job waves: the runner's (fused)
+    # and the forced chain against the plain version
+    ks = cs = ps = state
     quiet_at = {}
     for chunk in range(24):
         kprev = ks
+        A.reset_launch_counts()
         ks, krows = collect(dt, ks)
+        if A.grid_launch_counts() != {"fused": 1, "chain": 0, "combine": 0}:
+            raise AssertionError("the sharded chunk was not one fused launch")
+        cs, crows = kernels.run_steps(dt, cs, 8, config, auto_jobs=False, emit_events=True,
+                                      mode="collect", num_shards=N_SHARDS, sharded=True,
+                                      path="chain")
         ps, prows = MR.sharded_collect_plain(dt, ps, 8, N_SHARDS, config)
-        err = max(max_abs_err({"rows": krows}, {"rows": prows}), max_abs_err(ks, ps))
+        err = max(max_abs_err({"rows": krows}, {"rows": prows}), max_abs_err(ks, ps),
+                  max_abs_err({"rows": crows}, {"rows": prows}), max_abs_err(cs, ps))
         for s in range(N_SHARDS):  # each shard against run_collect alone on it
             ss, srows = A.run_collect(dt, shard_slice(kprev, s), n_steps=8, config=config)
             err = max(err, max_abs_err({"rows": srows},
@@ -511,7 +688,7 @@ def phase_sharded_vs_plain(rng, dev) -> dict:
         if not jobs and len(quiet_at) == N_SHARDS:
             break
         if jobs:
-            ks, ps = A.complete_jobs(ks, jobs), A.complete_jobs(ps, jobs)
+            ks, cs, ps = (A.complete_jobs(x, jobs) for x in (ks, cs, ps))
             quiet_at = {}  # a wave restarts every shard's loop
     overflow = ks["overflow"].cpu().tolist()
     done = ks["done"].view(N_SHARDS, I).cpu()
@@ -521,8 +698,9 @@ def phase_sharded_vs_plain(rng, dev) -> dict:
         if not bool(done[s].all()):
             raise AssertionError(f"shard {s}: not every instance completed")
     log(f"phase6 sharded_collect: {N_SHARDS} shards x I={I} T={T} FO={FO}, {chunk + 1} chunks "
-        f"with job waves, rows and state byte-equal to the plain version and to "
-        f"run_collect alone on each shard; overflow {overflow}; "
+        f"with job waves, rows and state of the fused chunk and of the forced chain "
+        f"byte-equal to the plain version, and to run_collect alone on each shard; "
+        f"overflow {overflow}; "
         f"transitions per shard {ks['transitions'].cpu().tolist()}")
 
     # first chunk of a fresh batch: one shard quiesces at once, the rest run on
@@ -538,12 +716,13 @@ def phase_sharded_vs_plain(rng, dev) -> dict:
     for k in M._REPLICATED_KEYS:
         sstate[k] = torch.zeros((), dtype=state[k].dtype, device=dev)
     step = M.make_sharded_step(M.make_mesh(N_SHARDS, dev), auto_jobs=True, config=config)
-    ks = ps = sstate
+    ks = cs = ps = sstate
     for k in range(6):
         kprev = ks
         ks = step(dt, ks)
+        cs = kernels.run_sharded_step(dt, cs, N_SHARDS, config, True, path="chain")
         ps = M.sharded_step_plain(dt, ps, N_SHARDS, True, config)
-        err = max_abs_err(ks, ps)
+        err = max(max_abs_err(ks, ps), max_abs_err(cs, ps))
         counters = {c: kprev[c] for c in M._REPLICATED_KEYS}
         sums = {c: 0 for c in ("transitions", "jobs_created", "completed")}
         for s in range(N_SHARDS):  # each shard against step alone on it
@@ -559,8 +738,9 @@ def phase_sharded_vs_plain(rng, dev) -> dict:
         worst["sharded_step"] = max(worst["sharded_step"], err)
         if err:
             raise AssertionError(f"sharded step differs (step {k})")
-    log(f"phase6 sharded_step: 6 steps byte-equal to the plain version and to step alone "
-        f"on each shard (transitions {int(ks['transitions'])}, overflow "
+    log(f"phase6 sharded_step: 6 steps, fused and forced chain, byte-equal to the plain "
+        f"version and (fused) to step alone on each shard (transitions "
+        f"{int(ks['transitions'])}, overflow "
         f"{bool(ks['overflow'])})")
     return {"worst": worst, "dt": dt, "config": config, "state": state, "sstate": sstate,
             "step": step, "collect": collect, "rows": krows}
@@ -603,6 +783,10 @@ def phase_mesh_slice(rng, dev, card: str) -> dict:
     torch.cuda.synchronize()
     mesh_wall = time.perf_counter() - t0
     launches = A.launch_counts()
+    grid = A.grid_launch_counts()
+    if grid != {"fused": launches["sharded_collect"], "chain": 0, "combine": 0}:
+        raise AssertionError(f"the mesh chunks were not one fused launch each: {grid}, "
+                             f"{launches['sharded_collect']} sharded chunks")
     solo, solo_walls = [], []
     for registry, group in partitions:
         t0 = time.perf_counter()
@@ -634,7 +818,8 @@ def phase_mesh_slice(rng, dev, card: str) -> dict:
         f"partition {[round(m.run_seconds * 1e3, 3) for m in results]} ms); "
         f"8 solo runs back to back {solo_wall * 1e3:.3f} ms "
         f"({transitions / solo_wall:.1f} transitions/s; device loop per group "
-        f"{[round(s.run_seconds * 1e3, 3) for s in solo]} ms); launches {launches}")
+        f"{[round(s.run_seconds * 1e3, 3) for s in solo]} ms); launches {launches}, "
+        f"grid launches {grid}")
     geometry = mesh_geometry_timings(partitions, dev, card)
     return {"launches": launches, "transitions": transitions, "mesh_wall": mesh_wall,
             "solo_wall": solo_wall, "steps": steps, "dispatches": runner.dispatches,
@@ -661,21 +846,87 @@ def mesh_geometry_timings(partitions, dev, card: str) -> dict:
     sharded_ms = time_ms(lambda: collect(dt, state), 20)
     loop_ms = time_ms(lambda: [A.run_collect(dt, x, n_steps=8, config=config)
                                for x in slices], 20)
-    bits = kernels.MODE_AUTO_JOBS
     sstate = dict(state)
     for k in M._REPLICATED_KEYS:
         sstate[k] = torch.zeros((), dtype=state[k].dtype, device=dev)
-    run = kernels.prepare(dt, sstate, config, bits, None, N_SHARDS, sharded=True)
-    sharded_step_ms = time_ms(lambda: kernels.launch_steps(run, 8, bits, None, 0), 20) / 8
-    one = kernels.prepare(dt, slices[0], config, bits, None)
-    one_step_ms = time_ms(lambda: kernels.launch_steps(one, 8, bits, None, 0), 20) / 8
+    sharded_step_ms = lockstep_ms(dt, sstate, config, "fused", N_SHARDS)
+    one_step_ms = lockstep_ms(dt, slices[0], config, "fused")
     log(f"phase7 geometry [{card}]: {N_SHARDS} shards x I={I} T={T} (mixed set): one "
         f"sharded chunk of 8 {sharded_ms:.4f} ms against the same {N_SHARDS} groups as "
         f"{N_SHARDS} run_collect calls {loop_ms:.4f} ms; sharded lock-step back to back "
         f"{sharded_step_ms:.4f} ms against one group's {one_step_ms:.4f} ms; bytes per "
         f"sharded lock-step {moved_bytes(dt, sstate, config)}")
     return {"geometry_chunk_ms": sharded_ms, "geometry_loop_ms": loop_ms,
-            "geometry_step_ms": sharded_step_ms, "geometry_one_step_ms": one_step_ms}
+            "geometry_step_ms": sharded_step_ms, "geometry_one_step_ms": one_step_ms,
+            "geo": {"dt": dt, "config": config, "state": state, "sstate": sstate}}
+
+
+def phase_repeat(serving: dict, geo: dict, card: str) -> None:
+    """The same fused chunk 50 times at I = 2048 and 50 times at 8 shards,
+    each output byte-equal to the plain version's (a visibility race between
+    the blocks of a cluster would show as one run that differs)."""
+    cases = {
+        "I=2048": (serving["dt"], serving["state"], serving["config"], 1),
+        f"{N_SHARDS} shards": (geo["dt"], geo["state"], geo["config"], N_SHARDS),
+    }
+    for label, (dt, state, config, ns) in cases.items():
+        if ns == 1:
+            want_state, want_rows = A.run_collect_plain(dt, state, n_steps=8, config=config)
+        else:
+            want_state, want_rows = MR.sharded_collect_plain(dt, state, 8, ns, config)
+        for k in range(50):
+            got_state, got_rows = kernels.run_steps(
+                dt, state, 8, config, auto_jobs=False, emit_events=True, mode="collect",
+                num_shards=ns, sharded=ns > 1, path="fused")
+            if max(max_abs_err({"rows": got_rows}, {"rows": want_rows}),
+                   max_abs_err(got_state, want_state)):
+                raise AssertionError(f"repeat {k} of the fused chunk at {label} differs")
+        log(f"phase repeat [{card}]: 50 fused chunks at {label}, each byte-equal to plain")
+
+
+def phase_ab(serving: dict, geo: dict, slice_info: dict, rng, dev, card: str) -> dict:
+    """The chain against the fused chunk in one call, in turns (chain,
+    fused, fused, chain): at the serving geometry a lock-step back to back,
+    a chunk per call (its host enqueue time too) and the grid launches per
+    chunk; at the mesh geometry the same for 8 shards; the phase 4 groups'
+    device-loop and slice transitions/s; and, for the shape rule, a
+    lock-step and a chunk of the mixed set at T = 8192, 16384, 32768, 131072
+    (I = T / 4). Fused and chain outputs are held byte-equal at each T."""
+    dt, state, config = serving["dt"], serving["state"], serving["config"]
+    gdt, gstate, gsstate, gconfig = geo["dt"], geo["state"], geo["sstate"], geo["config"]
+    tables = slice_info["tables"]
+    sweep = {}
+    for T in (8192, 16384, 32768, 131072):
+        sweep[T], _ = group_setup(tables, T // 4, T, rng, dev)
+        f = fused_collect(dt, sweep[T], 8, config)
+        c = chain_collect(dt, sweep[T], 8, config)
+        if max(max_abs_err({"rows": f[1]}, {"rows": c[1]}), max_abs_err(f[0], c[0])):
+            raise AssertionError(f"fused and chain chunks differ at T={T}")
+
+    def sharded(path):
+        return lambda: kernels.run_steps(gdt, gstate, 8, gconfig, auto_jobs=False,
+                                         emit_events=True, mode="collect",
+                                         num_shards=N_SHARDS, sharded=True, path=path)
+
+    turns = []
+    for path in AB_TURNS:
+        chunk = lambda: COLLECT[path](dt, state, 8, config)  # noqa: E731
+        r = {"lockstep_ms": lockstep_ms(dt, state, config, path),
+             "chunk_ms": time_ms(chunk, 50), "chunk_host_ms": host_ms(chunk, 50),
+             "grid_per_chunk": grid_per_call(chunk),
+             "sharded_lockstep_ms": lockstep_ms(gdt, gsstate, gconfig, path, N_SHARDS),
+             "sharded_chunk_ms": time_ms(sharded(path), 20),
+             "sharded_grid_per_chunk": grid_per_call(sharded(path))}
+        rates = slice_rates(slice_info, COLLECT[path], dev)
+        r["loop_tps"], r["slice_tps"] = rates["loop"], rates["slice"]
+        for T, st in sweep.items():
+            r[f"lockstep_ms_T{T}"] = lockstep_ms(dt, st, config, path)
+            r[f"chunk_ms_T{T}"] = time_ms(lambda: COLLECT[path](dt, st, 8, config), 10)
+        turns.append(r)
+    log(f"phase A/B [{card}] turns {list(AB_TURNS)}:")
+    for key in turns[0]:
+        log(f"  {key}: {[round(r[key], 6) if isinstance(r[key], float) else r[key] for r in turns]}")
+    return {"turns": turns}
 
 
 def sharded_timings(info: dict) -> dict:
@@ -684,6 +935,11 @@ def sharded_timings(info: dict) -> dict:
     collect chunk of 8 on a fresh batch, against their plain versions."""
     dt, config = info["dt"], info["config"]
     state, sstate, step, collect = info["state"], info["sstate"], info["step"], info["collect"]
+    def chain_chunk():
+        return kernels.run_steps(dt, state, 8, config, auto_jobs=False, emit_events=True,
+                                 mode="collect", num_shards=N_SHARDS, sharded=True,
+                                 path="chain")
+
     out = {
         "sharded_step": {
             "ms": time_ms(lambda: step(dt, sstate), 50),
@@ -691,6 +947,10 @@ def sharded_timings(info: dict) -> dict:
                                                              config), 3),
             "bound_ms": bound_ms(dt, sstate, config),
             "bytes": moved_bytes(dt, sstate, config),
+            "chain_ms": time_ms(lambda: kernels.run_sharded_step(
+                dt, sstate, N_SHARDS, config, True, path="chain"), 50),
+            "chain_device_ms": lockstep_ms(dt, sstate, config, "chain", N_SHARDS),
+            "grid_launches": grid_per_call(lambda: step(dt, sstate)),
         },
         "sharded_collect": {
             "ms": time_ms(lambda: collect(dt, state), 20),
@@ -698,13 +958,13 @@ def sharded_timings(info: dict) -> dict:
                                                                  config), 2),
             "bound_ms": bound_ms(dt, state, config, nbytes([info["rows"]])),
             "bytes": moved_bytes(dt, state, config, nbytes([info["rows"]])),
+            "chain_ms": time_ms(chain_chunk, 20),
+            "grid_launches": grid_per_call(lambda: collect(dt, state)),
+            "chain_grid_launches": grid_per_call(chain_chunk),
         },
     }
-    # the sharded lock-step kernels alone, back to back (auto jobs, no events)
-    bits = kernels.MODE_AUTO_JOBS
-    run = kernels.prepare(dt, sstate, config, bits, None, N_SHARDS, sharded=True)
-    out["sharded_step"]["device_ms"] = time_ms(
-        lambda: kernels.launch_steps(run, 8, bits, None, 0), 20) / 8
+    # the sharded lock-step alone, back to back (auto jobs, no events)
+    out["sharded_step"]["device_ms"] = lockstep_ms(dt, sstate, config, "fused", N_SHARDS)
     return out
 
 
@@ -901,8 +1161,11 @@ def phase_decision(rng, dev, card: str) -> dict:
         ms = time_ms(lambda: kernels.run_decision(*atoms, kk, vv), 50)
         plain_ms = time_ms(lambda: D._evaluate_batch(*atoms, kk, vv), 3)
         device_ms, profiled_ms = decision_device_ms(atoms, kk, vv)
+        A.reset_launch_counts()
+        kernels.run_decision(*atoms, kk, vv)
+        grid = A.launch_counts()["decision"]
         info[name] = {"ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
-                      "profiled_ms": profiled_ms, **bound}
+                      "profiled_ms": profiled_ms, "grid_launches": grid, **bound}
         N = k.shape[0]
         I, R, K = t.kind.shape
         log(f"phase8 {name} [{card}]: N={N} I={I} R={R} K={K}, m/selected/counts "
@@ -1048,13 +1311,20 @@ def main() -> int:
     path = kernels.build(verbose=False)
     kernels.load()
     log(f"phase2 build: {path.name} in {time.perf_counter() - t0:.1f} s")
+    res = kernels.fused_resources()
+    log(f"phase2 fused chunk: {res}; ptxas: {' | '.join(kernels.ptxas_report('k_chunk'))}")
+    if res["max_active_clusters"] < N_SHARDS:
+        raise AssertionError(f"{N_SHARDS} shard clusters do not fit on the card at once")
 
     worst = phase_kernel_vs_plain(rng, dev)
     slice_info = phase_slice(rng, dev, card)
+    profiled = phase_profile(slice_info, dev, card)
     ceiling = phase_ceiling(dev, card)
     timing = serving_timings(slice_info)
     sharded = phase_sharded_vs_plain(rng, dev)
     mesh = phase_mesh_slice(rng, dev, card)
+    phase_repeat(timing, mesh["geo"], card)
+    ab = phase_ab(timing, mesh["geo"], slice_info, rng, dev, card)
     stiming = sharded_timings(sharded)
     timing.update(stiming)
     worst.update(sharded["worst"])
@@ -1067,7 +1337,13 @@ def main() -> int:
         f"{stiming['sharded_step']['plain_ms']:.4f}), "
         f"{stiming['sharded_step']['device_ms']:.4f} ms per sharded lock-step back to back, "
         f"sharded_collect chunk {stiming['sharded_collect']['ms']:.4f} ms (plain "
-        f"{stiming['sharded_collect']['plain_ms']:.4f}); bytes per step "
+        f"{stiming['sharded_collect']['plain_ms']:.4f}); forced chain: sharded_step "
+        f"{stiming['sharded_step']['chain_ms']:.4f} ms per call, "
+        f"{stiming['sharded_step']['chain_device_ms']:.4f} ms per lock-step back to back, "
+        f"chunk {stiming['sharded_collect']['chain_ms']:.4f} ms; grid launches per call "
+        f"sharded_step {stiming['sharded_step']['grid_launches']}, chunk "
+        f"{stiming['sharded_collect']['grid_launches']} (chain "
+        f"{stiming['sharded_collect']['chain_grid_launches']}); bytes per step "
         f"{stiming['sharded_step']['bytes']}, per chunk {stiming['sharded_collect']['bytes']}; "
         f"launches on the mesh slice: sharded_step {mesh['launches']['sharded_step']} enqueued "
         f"({mesh['steps']} decoded partition steps), sharded_collect "
@@ -1077,7 +1353,12 @@ def main() -> int:
         f"(plain {timing['step']['plain_ms']:.4f}), "
         f"{timing['step']['device_ms']:.4f} ms per lock-step back to back, "
         f"run_collect chunk {timing['run_collect']['ms']:.4f} ms "
-        f"(plain {timing['run_collect']['plain_ms']:.4f}); bytes per step "
+        f"(plain {timing['run_collect']['plain_ms']:.4f}); forced chain: step "
+        f"{timing['step']['chain_ms']:.4f} ms per call, "
+        f"{timing['step']['chain_device_ms']:.4f} ms per lock-step back to back, chunk "
+        f"{timing['run_collect']['chain_ms']:.4f} ms; grid launches per call step "
+        f"{timing['step']['grid_launches']}, chunk {timing['run_collect']['grid_launches']} "
+        f"(chain {timing['run_collect']['chain_grid_launches']}); bytes per step "
         f"{timing['step_bytes']}, per chunk {timing['chunk_bytes']}; launches per group: "
         f"step {slice_info['launches']['step'] / 8} enqueued "
         f"({slice_info['decoded_steps'] / 8} decoded live steps), "
@@ -1094,11 +1375,9 @@ def main() -> int:
         f"launches on its path {decision['launches']['decision']}; fault seam: CPU oracle "
         f"{seam['oracle_ms']:.3f} ms per shadowed I=2048 group, wedge to typed failure "
         f"{seam['wedge_ms'][0]:.1f}-{seam['wedge_ms'][1]:.1f} ms at a 200 ms deadline")
-    busy_ms = slice_info["decoded_steps"] * timing["step"]["device_ms"]
-    log(f"phase4 busy estimate [{card}]: decoded live steps x back-to-back lock-step "
-        f"= {busy_ms:.4f} ms of kernels in {slice_info['device_loop_ms']:.4f} ms of "
-        f"device loop ({100 * busy_ms / slice_info['device_loop_ms']:.2f}%); derived, "
-        f"not profiled")
+    log(f"phase4 busy share [{card}]: kernels {pct(profiled['fused']['share'])} of the "
+        f"device loop on the fused path (torch.profiler, 2 groups), "
+        f"{pct(profiled['chain']['share'])} on the forced chain")
 
     counts = {"step": slice_info["launches"]["step"],
               "run_collect": slice_info["launches"]["run_collect"],
@@ -1120,6 +1399,8 @@ def main() -> int:
             "match": True, "tolerance": 0, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t.get("bound_by", "bytes"),
             "library_ms": None, "device_ms": t.get("device_ms"),
+            "path": MAIN_PATH[name], "grid_launches": t["grid_launches"],
+            "chain_ms": t.get("chain_ms"),
         })
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(card, flush=True)

@@ -141,13 +141,28 @@ def test_kernels_build(cuda):
     kernels.load()
 
 
+def _collect(path):
+    """run_collect by the shape rule (None: the public wrapper) or forced
+    onto one path."""
+    if path is None:
+        return A.run_collect
+    return lambda dt, state, n_steps, config: kernels.run_steps(
+        dt, state, n_steps, config, auto_jobs=False, emit_events=True, mode="collect",
+        path=path)
+
+
+@pytest.mark.parametrize("path", [None, "chain"])
 @pytest.mark.parametrize("name,I,T", CASES)
-def test_run_collect_waves_match_plain(cuda, name, I, T):
+def test_run_collect_waves_match_plain(cuda, name, I, T, path):
+    """Chunk by chunk with job waves against the plain version; every case
+    takes the fused chunk by the shape rule (None) or is forced onto the
+    chain."""
     tables, dt, state = _setup(name, I, T, seed=7, device=cuda)
     config = tables.kernel_config
+    collect = _collect(path)
     ks, ps = state, state
     for _ in range(12):
-        ks, krows = A.run_collect(dt, ks, n_steps=8, config=config)
+        ks, krows = collect(dt, ks, n_steps=8, config=config)
         ps, prows = A.run_collect_plain(dt, ps, n_steps=8, config=config)
         assert torch.equal(krows.cpu(), prows.cpu())
         _assert_state_equal(ks, ps)
@@ -185,8 +200,9 @@ def test_step_events_match_plain(cuda, name, auto_jobs):
             ks, ps = A.complete_jobs(ks, jobs), A.complete_jobs(ps, jobs)
 
 
+@pytest.mark.parametrize("path", [None, "chain"])
 @pytest.mark.parametrize("sequential", [False, True])
-def test_mi_bodies_match_plain(cuda, sequential):
+def test_mi_bodies_match_plain(cuda, sequential, path):
     mi = _mi_tables(sequential)
     dt = A.DeviceTables.from_numpy(mi, cuda)
     config = KernelConfig(has_joins=False, has_conditions=False, has_scopes=False,
@@ -207,7 +223,7 @@ def test_mi_bodies_match_plain(cuda, sequential):
     before = {k: v.clone() for k, v in state.items()}
     ks = ps = state
     for _ in range(10):
-        ks, krows = A.run_collect(dt, ks, n_steps=8, config=config)
+        ks, krows = _collect(path)(dt, ks, n_steps=8, config=config)
         ps, prows = A.run_collect_plain(dt, ps, n_steps=8, config=config)
         assert torch.equal(krows.cpu(), prows.cpu())
         _assert_state_equal(ks, ps)
@@ -310,8 +326,11 @@ def _shard_registry():
     return registry
 
 
+@pytest.mark.parametrize("path", [None, "chain"])
 @pytest.mark.parametrize("n_shards", [1, 3, 8])
-def test_sharded_collect_matches_plain(cuda, n_shards):
+def test_sharded_collect_matches_plain(cuda, n_shards, path):
+    """Sharded chunks (the fused chunk by the shape rule, or the forced
+    chain): shard 0 quiesces in its first chunk, shard 2 overflows alone."""
     registry = _shard_registry()
     dt = registry.device_tables_for(cuda)
     config = registry.tables.kernel_config
@@ -322,7 +341,8 @@ def test_sharded_collect_matches_plain(cuda, n_shards):
     ks = ps = state
     for chunk in range(10):
         ks, krows = kernels.run_steps(dt, ks, 8, config, auto_jobs=False, emit_events=True,
-                                      mode="collect", num_shards=n_shards, sharded=True)
+                                      mode="collect", num_shards=n_shards, sharded=True,
+                                      path=path)
         ps, prows = MR.sharded_collect_plain(dt, ps, 8, n_shards, config)
         assert torch.equal(krows.cpu(), prows.cpu())
         _assert_state_equal(ks, ps)
@@ -377,12 +397,16 @@ def _sharded_state(n_shards: int, device, overflow_shard: bool):
     return tables, A.DeviceTables.from_numpy(tables, device), state
 
 
+@pytest.mark.parametrize("path", [None, "chain"])
 @pytest.mark.parametrize("overflow_shard", [False, True])
 @pytest.mark.parametrize("n_shards", [1, 3, 8])
-def test_sharded_step_matches_plain(cuda, n_shards, overflow_shard):
+def test_sharded_step_matches_plain(cuda, n_shards, overflow_shard, path):
     tables, dt, state = _sharded_state(n_shards, cuda, overflow_shard)
     mesh = M.make_mesh(n_shards, cuda)
     step = M.make_sharded_step(mesh, auto_jobs=True, config=tables.kernel_config)
+    if path is not None:
+        step = lambda dt, st: kernels.run_sharded_step(  # noqa: E731
+            dt, st, n_shards, tables.kernel_config, True, path=path)
     ks = ps = state
     for _ in range(10):
         ks = step(dt, ks)
@@ -440,6 +464,120 @@ def test_drive_groups_on_mesh_matches_drive_group(cuda):
                               [kb.GroupInstance(**vars(i)) for i in insts], device=cuda)
         assert result.waves == solo.waves
         _assert_state_equal({k: v.cpu() for k, v in solo.state.items()}, result.state)
+
+
+# ---------------------------------------------------------------------------
+# the fused chunk (one cluster per shard, one launch per chunk) and the chain
+
+
+def _chain_launches(config, n_steps: int, collect: bool) -> int:
+    """Grid launches of one chain call: zt_prepare (k_prepare, and
+    k_occupancy with scopes or MI), then per lock-step classify, the join
+    rank (joins), three scan passes, place, finish, occupancy (scopes or
+    MI), active (collect) and end step."""
+    scoped = config.has_scopes or config.has_mi
+    per_step = 7 + config.has_joins + scoped + collect
+    return 1 + scoped + n_steps * per_step
+
+
+@pytest.mark.parametrize("T,path", [(kernels.FUSED_MAX_TOKENS, "fused"),
+                                    (kernels.FUSED_MAX_TOKENS + 64, "chain")])
+def test_shape_rule_at_the_threshold(cuda, T, path):
+    """T at the threshold takes the fused chunk, just above it the chain;
+    both byte-equal to the plain version (steps without events: the packed
+    dest column holds T <= 0xFFFF only)."""
+    tables, dt, state = _setup("fork_join", 2048, T, seed=21, device=cuda)
+    config = tables.kernel_config
+    ks = ps = state
+    A.reset_launch_counts()
+    for _ in range(6):
+        ks, _ = kernels.run_steps(dt, ks, 1, config, auto_jobs=True, emit_events=False,
+                                  mode="step")
+        ps, _ = A.step_plain(dt, ps, auto_jobs=True, config=config)
+        _assert_state_equal(ks, ps)
+    grid = A.grid_launch_counts()
+    if path == "fused":
+        assert grid == {"fused": 6, "chain": 0, "combine": 0}
+    else:
+        assert grid == {"fused": 0, "chain": 6 * _chain_launches(config, 1, False),
+                        "combine": 0}
+
+
+@pytest.mark.parametrize("name", ["mixed", "fork_join", "nomatch"])
+def test_fused_equals_forced_chain(cuda, name):
+    tables, dt, state = _setup(name, 2048, None, seed=17, device=cuda)
+    config = tables.kernel_config
+    fs = cs = state
+    for _ in range(6):
+        fs, frows = kernels.run_steps(dt, fs, 8, config, auto_jobs=False, emit_events=True,
+                                      mode="collect", path="fused")
+        cs, crows = kernels.run_steps(dt, cs, 8, config, auto_jobs=False, emit_events=True,
+                                      mode="collect", path="chain")
+        assert torch.equal(frows, crows)
+        _assert_state_equal(fs, cs)
+        jobs = _waiting(tables.kernel_op, fs)
+        if jobs.size:
+            fs, cs = A.complete_jobs(fs, jobs), A.complete_jobs(cs, jobs)
+
+
+@pytest.mark.parametrize("n_shards", [1, 8])
+def test_fused_chunk_is_deterministic(cuda, n_shards):
+    """The same fused chunk 20 times: every output byte-equal to the plain
+    version (a visibility race between the blocks of a cluster would show
+    as a run that differs)."""
+    if n_shards == 1:
+        tables, dt, state = _setup("mixed", 2048, None, seed=19, device=cuda)
+    else:
+        tables, dt, state = _sharded_state(n_shards, cuda, True)
+        for k in ("transitions", "jobs_created", "completed", "overflow"):
+            state[k] = state[k].reshape(1).repeat(n_shards)
+    config = tables.kernel_config
+    if n_shards == 1:
+        want_state, want_rows = A.run_collect_plain(dt, state, n_steps=8, config=config)
+    else:
+        want_state, want_rows = MR.sharded_collect_plain(dt, state, 8, n_shards, config)
+    for _ in range(20):
+        got_state, got_rows = kernels.run_steps(dt, state, 8, config, auto_jobs=False,
+                                                emit_events=True, mode="collect",
+                                                num_shards=n_shards, sharded=n_shards > 1,
+                                                path="fused")
+        assert torch.equal(got_rows, want_rows)
+        _assert_state_equal(got_state, want_state)
+
+
+def test_grid_launch_counts(cuda):
+    """A serving chunk is one grid launch on the fused path; the forced
+    chain enqueues its per-phase launches; the sharded step adds one
+    combine launch."""
+    tables, dt, state = _setup("mixed", 2048, None, seed=23, device=cuda)
+    config = tables.kernel_config
+    A.reset_launch_counts()
+    A.run_collect(dt, state, n_steps=8, config=config)
+    assert A.grid_launch_counts() == {"fused": 1, "chain": 0, "combine": 0}
+    A.reset_launch_counts()
+    kernels.run_steps(dt, state, 8, config, auto_jobs=False, emit_events=True,
+                      mode="collect", path="chain")
+    assert A.grid_launch_counts() == {"fused": 0, "chain": _chain_launches(config, 8, True),
+                                      "combine": 0}
+    # the same lock-step counts on both paths
+    assert A.launch_counts()["step"] == 8
+    stables, sdt, sstate = _sharded_state(3, cuda, False)
+    A.reset_launch_counts()
+    M.make_sharded_step(M.make_mesh(3, cuda), config=stables.kernel_config)(sdt, sstate)
+    assert A.grid_launch_counts() == {"fused": 1, "chain": 0, "combine": 1}
+    A.reset_launch_counts()
+    A.run_to_completion(dt, state, max_steps=8, config=config)
+    grid = A.grid_launch_counts()
+    assert grid["fused"] == 0 and grid["chain"] > 0
+
+
+def test_fused_resources(cuda):
+    """The fused kernel launches 8-block clusters, and a mesh of 8 shards
+    fits on the card at once."""
+    res = kernels.fused_resources()
+    assert res["registers"] > 0 and res["max_active_clusters"] >= 8
+    lines = kernels.ptxas_report("k_chunk")
+    assert any("registers" in line for line in lines)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,11 @@ Each of ``step``, ``run_collect`` and ``run_to_completion`` is a wrapper:
 
 ``ops.kernels`` counts the launches where it enqueues them (``launch_counts``
 reads the counts): ``step`` counts every lock-step the kernels run,
-including those inside ``run_collect`` and ``run_to_completion``.
+including those inside ``run_collect`` and ``run_to_completion``;
+``grid_launch_counts`` reads the CUDA grid launches behind them. ``step``
+and ``run_collect`` take the fused chunk (one launch per call) for groups
+of up to ``kernels.FUSED_MAX_TOKENS`` token slots and the chain of
+per-phase launches above that; ``run_to_completion`` takes the chain.
 
 ``make_state``, ``complete_jobs``, ``DeviceTables.from_numpy`` and
 ``state_from_numpy`` are placement and small scatters and stay plain PyTorch.
@@ -723,13 +727,20 @@ def run_to_completion(tables: DeviceTables, state: dict, max_steps: int = 1000,
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    for name in kernels.LAUNCHES:
-        kernels.LAUNCHES[name] = 0
+    """Set every kernel's launch count, and every grid-launch count, to 0."""
+    for counts in (kernels.LAUNCHES, kernels.GRID_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts() -> dict:
     return dict(kernels.LAUNCHES)
+
+
+def grid_launch_counts() -> dict:
+    """CUDA grid launches the automaton wrappers enqueued, by path (see
+    ``kernels.GRID_LAUNCHES``)."""
+    return dict(kernels.GRID_LAUNCHES)
 
 
 def complete_jobs(state: dict, token_slots, result_slots=None,
