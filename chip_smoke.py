@@ -16,7 +16,11 @@ exit) if any phase fails:
    the 8-definition mixed set → run_group with chunk prefetch and job waves
    → per-instance traces; every instance completes, nothing overflows, and
    traces and counters equal a run of the plain version on the card;
-5. the kernel ceiling: run_to_completion of one_task at I = T = 1<<20;
+5. the kernel ceiling: run_to_completion of one_task at I = T = 1<<20 on
+   the grid kernel (one cooperative launch per call), byte-equal to the
+   plain version (state and steps) and to the forced chain, 20 repeats each
+   byte-equal; ms per call and per live lock-step beside the bound of the
+   same work; an A/B in turns (chain, grid, grid, chain) at 1<<20 and 1<<16;
 6. the sharded kernels against their plain versions on the card: 8 shard
    blocks on the one card, each a serving partition group (I = 2048 by the
    group rule) of a registry holding the mixed set, a call activity and a
@@ -31,10 +35,12 @@ exit) if any phase fails:
    wave by ``drive_groups_on_mesh`` on one MeshKernelRunner from 8 threads;
    every partition's traces and final state equal the same group driven
    alone by ``drive_group`` on the card, and dispatches coalesced;
-8. DMN batch evaluation: the decision kernel (``csrc/decision.cu``) byte-
-   equal to its plain version at the benchmark's geometry (``run_dmn_batch``:
+8. DMN batch evaluation: both layouts of the decision kernel
+   (``csrc/decision.cu``: lanes, the default, and serial) byte-equal to
+   their plain version at the benchmark's geometry (``run_dmn_batch``:
    N = 200,000 contexts, I = 2, R = 8, K = 4) and at a wide one (N = 16,384,
-   I = 4, R = 512, K = 4, random atoms of every kind and flag);
+   I = 4, R = 512, K = 4, random atoms of every kind and flag), timed in
+   turns (serial, lanes, lanes, serial: wrapper call, raw launches, profiler);
    ``batch_evaluate`` lists equal to the plain outputs' under every hit
    policy and COLLECT aggregation at both; a 2,000-context sample equal to
    the host DecisionEngine's unary tests; rows/s through ``batch_evaluate``
@@ -49,17 +55,20 @@ exit) if any phase fails:
    wedges;
 10. prints the kernels line (JSON), then the card line, then the result line.
 
-Two paths run the automaton's steps (``ops/kernels.py``): the fused chunk,
-one thread-block cluster per shard and ONE launch per chunk, for shards of
-up to ``kernels.FUSED_MAX_TOKENS`` token slots (the serving geometry), and
-the chain of per-phase launches above that and for run_to_completion.
-Phases 3 and 6 hold both (the chain forced with ``path="chain"``) byte-equal
+Three paths run the automaton's steps (``ops/kernels.py``): the fused
+chunk, one thread-block cluster per shard and ONE launch per chunk, for
+shards of up to ``kernels.FUSED_MAX_TOKENS`` token slots (the serving
+geometry); the chain of per-phase launches above that; and the grid kernel,
+ONE cooperative launch over the whole card per run_to_completion. Phases 3
+and 6 hold the first two (the chain forced with ``path="chain"``) byte-equal
 to the plain version, including chunks that go quiet before their last
 step; phases 4 and 7 check that every serving chunk was one fused grid
-launch. Beside them:
+launch, phase 5 that run_to_completion was one grid launch. Beside them:
 
 - phase 2 prints the fused kernel's registers and spills (``-Xptxas -v``)
-  and ``cudaOccupancyMaxActiveClusters``; 8 shard clusters must fit;
+  and ``cudaOccupancyMaxActiveClusters`` (8 shard clusters must fit), the
+  grid kernel's registers, spills, blocks per SM and co-resident grid, and
+  the lanes decision layout's registers;
 - a ``torch.profiler`` window over two of phase 4's groups per path gives
   kernel time by name and the kernels' busy share of the device loop;
 - the repeat phase runs the same fused chunk 50 times at I = 2048 and 50
@@ -77,7 +86,9 @@ before each main path runs (phase 4 for step and run_collect, phase 5 for
 run_to_completion, phase 7 for sharded_step and sharded_collect, phase 8's
 ``batch_evaluate`` at the benchmark's geometry for decision) and read right
 after; comparison launches do not count. Each entry of the kernels line
-names its path and its grid launches per call.
+names its path and its grid launches per call; run_to_completion's also its
+live steps and its time per live lock-step beside that step's bound, and
+decision's the serial layout's time.
 """
 
 from __future__ import annotations
@@ -125,10 +136,10 @@ REPLACES = {
 KERNELS = ("step", "run_collect", "run_to_completion", "sharded_step", "sharded_collect",
            "decision")
 # each kernel's path on its main path: the fused chunk (one cluster launch
-# per call, plus the counter combine for the sharded step), the chain of
-# per-phase launches, or (decision) one kernel of its own
-MAIN_PATH = {"step": "fused", "run_collect": "fused", "run_to_completion": "chain",
-             "sharded_step": "fused", "sharded_collect": "fused", "decision": None}
+# per call, plus the counter combine for the sharded step), the grid kernel
+# (one cooperative launch per call), or (decision) the lanes layout
+MAIN_PATH = {"step": "fused", "run_collect": "fused", "run_to_completion": "grid",
+             "sharded_step": "fused", "sharded_collect": "fused", "decision": "lanes"}
 N_SHARDS = 8
 
 
@@ -230,6 +241,8 @@ def fused_collect(dt, state: dict, n_steps: int, config):
 
 COLLECT = {"chain": chain_collect, "fused": fused_collect}
 AB_TURNS = ("chain", "fused", "fused", "chain")
+COMPLETION_TURNS = ("chain", "grid", "grid", "chain")
+DECISION_TURNS = ("serial", "lanes", "lanes", "serial")
 
 
 def lockstep_ms(dt, state: dict, config, path: str, num_shards: int = 1) -> float:
@@ -316,7 +329,7 @@ def phase_kernel_vs_plain(rng, dev) -> dict:
         for _ in range(24):
             A.reset_launch_counts()
             ks, krows = A.run_collect(dt, ks, n_steps=8, config=config)
-            if A.grid_launch_counts() != {"fused": 1, "chain": 0, "combine": 0}:
+            if A.grid_launch_counts() != {"fused": 1, "chain": 0, "combine": 0, "grid": 0}:
                 raise AssertionError(f"{name}: run_collect was not one fused launch")
             cs, crows = chain_collect(dt, cs, n_steps=8, config=config)
             ps, prows = A.run_collect_plain(dt, ps, n_steps=8, config=config)
@@ -397,7 +410,7 @@ def phase_slice(rng, dev, card: str) -> dict:
         walls.append(time.perf_counter() - t0)
     launches = A.launch_counts()
     grid = A.grid_launch_counts()
-    if grid != {"fused": launches["run_collect"], "chain": 0, "combine": 0}:
+    if grid != {"fused": launches["run_collect"], "chain": 0, "combine": 0, "grid": 0}:
         raise AssertionError(f"the serving chunks were not one fused launch each: {grid}, "
                              f"{launches['run_collect']} run_collect calls")
     plain = [kb.drive_group(tables, dt, copy(g), device=dev, collect=A.run_collect_plain)
@@ -481,13 +494,48 @@ def phase_profile(info: dict, dev, card: str) -> dict:
     return out
 
 
-def phase_ceiling(dev, card: str) -> dict:
-    """Phase 5: run_to_completion of one_task at I = T = 1<<20."""
+def ceiling_setup(n: int, dev):
+    """one_task at I = T = n, every instance at its start event."""
     tables = compile_tables([transform(W.one_task())])
     dt = A.DeviceTables.from_numpy(tables, dev)
-    config = tables.kernel_config
-    n = 1 << 20
     state = A.make_state(tables, n, np.zeros(n, np.int32), token_capacity=n, device=dev)
+    return dt, tables.kernel_config, state
+
+
+def completion_ms(dt, state: dict, config, path: str, steps: int) -> dict:
+    """One run_to_completion of a path: the wrapper call (CUDA events), its
+    grid launches, and one live lock-step on buffers allocated once (no
+    wrapper work): the copy-in plus ``steps`` lock-steps less the copy-in
+    alone, over ``steps``."""
+    call = lambda: kernels.run_until_quiet(dt, state, 64, config, True, path=path)  # noqa: E731
+    bits = kernels.MODE_COMPLETION | kernels.MODE_AUTO_JOBS
+    if path == "grid":
+        run = kernels.allocate(dt, state, config)
+
+        def upto(k):
+            return lambda: kernels.launch_complete(run, k, bits)
+    else:
+        step_bits = kernels.MODE_AUTO_JOBS
+
+        def upto(k):
+            def f():
+                run = kernels.prepare(dt, state, config, step_bits, None)
+                if k:
+                    kernels.launch_steps(run, k, step_bits, None, 0)
+            return f
+    copy_ms = time_ms(upto(0), 10)
+    return {"call_ms": time_ms(call, 10), "step_ms": (time_ms(upto(steps), 10) - copy_ms) / steps,
+            "copy_ms": copy_ms, "grid_per_call": grid_per_call(call)}
+
+
+def phase_ceiling(dev, card: str) -> dict:
+    """Phase 5: run_to_completion of one_task at I = T = 1<<20 on the grid
+    kernel (the main path, counted: one grid launch per call), held
+    byte-equal to the plain version (state and steps); 20 repeats each
+    byte-equal; the forced chain in turns with it (chain, grid, grid,
+    chain) at 1<<20 and at 1<<16."""
+    n = 1 << 20
+    dt, config, state = ceiling_setup(n, dev)
     A.run_to_completion(dt, state, max_steps=64, config=config)  # warm-up, not counted
     torch.cuda.synchronize()
     A.reset_launch_counts()
@@ -496,33 +544,65 @@ def phase_ceiling(dev, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = A.launch_counts()
+    grid = A.grid_launch_counts()
+    if grid != {"fused": 0, "chain": 0, "combine": 0, "grid": 1}:
+        raise AssertionError(f"run_to_completion was not one grid launch: {grid}")
     pf, psteps = A.run_to_completion_plain(dt, state, max_steps=64, config=config)
     err = max_abs_err(kf, pf)
-    if err or int(ksteps) != int(psteps):
+    steps = int(psteps)
+    if err or int(ksteps) != steps:
         raise AssertionError("run_to_completion differs from plain at the ceiling")
     if not bool(kf["done"].all()) or bool(kf["overflow"]):
         raise AssertionError("ceiling run incomplete or overflowed")
-    ms = time_ms(lambda: A.run_to_completion(dt, state, max_steps=64, config=config), 5)
-    grid = grid_per_call(lambda: A.run_to_completion(dt, state, max_steps=64, config=config))
+    cf, csteps = kernels.run_until_quiet(dt, state, 64, config, True, path="chain")
+    if max_abs_err(cf, pf) or int(csteps) != steps:
+        raise AssertionError("the forced chain differs from plain at the ceiling")
+    for k in range(20):
+        rf, rsteps = A.run_to_completion(dt, state, max_steps=64, config=config)
+        if max_abs_err(rf, pf) or int(rsteps) != steps:
+            raise AssertionError(f"repeat {k} of the grid kernel at the ceiling differs")
     plain_ms = time_ms(lambda: A.run_to_completion_plain(dt, state, max_steps=64,
                                                          config=config), 2)
     transitions = int(kf["transitions"])
-    bound = bound_ms(dt, state, config)
-    # one live lock-step over 1<<20 slots: prepare + 4 steps, less prepare
-    bits = kernels.MODE_AUTO_JOBS
-    prep_ms = time_ms(lambda: kernels.prepare(dt, state, config, bits, None), 5)
-    four_ms = time_ms(lambda: kernels.launch_steps(
-        kernels.prepare(dt, state, config, bits, None), 4, bits, None, 0), 5)
-    step_ms = (four_ms - prep_ms) / 4
-    log(f"phase5 step [{card}]: {step_ms:.4f} ms per live lock-step over {n} slots "
-        f"(prepare {prep_ms:.4f} ms); bytes per step {moved_bytes(dt, state, config)} "
-        f"-> bound {bound * 1e3:.3f} us at 3.35 TB/s")
-    log(f"phase5 ceiling [{card}]: one_task I=T={n}, {int(ksteps)} steps, "
-        f"{transitions} transitions, byte-equal to plain; first call {wall * 1e3:.3f} ms, "
-        f"{ms:.3f} ms per call ({transitions / ms * 1e3:.1f} transitions/s), "
-        f"plain {plain_ms:.3f} ms")
-    return {"launches": launches, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "err": err, "step_ms": step_ms, "grid_launches": grid}
+    step_bytes = moved_bytes(dt, state, config)
+    # the call's least work is its live steps, the first reading the caller's
+    # state: a copy-in of its own is the kernel's choice, not the function's
+    bound = steps * step_bytes / HBM_BYTES_PER_S * 1e3
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"phase5 ceiling [{card}]: one_task I=T={n}, {steps} live steps, {transitions} "
+        f"transitions; grid kernel byte-equal to plain (state and steps), the forced chain "
+        f"too, 20 repeats each byte-equal; first call {wall * 1e3:.3f} ms; plain "
+        f"{plain_ms:.3f} ms; bound {bound * 1e3:.3f} us for the call ({steps} x {step_bytes} "
+        f"B), {step_bound * 1e3:.3f} us per live step, at 3.35 TB/s")
+
+    # the A/B in turns at the ceiling and at 1<<16 (each held byte-equal)
+    sdt, sconfig, sstate = ceiling_setup(1 << 16, dev)
+    sf, ssteps = A.run_to_completion_plain(sdt, sstate, max_steps=64, config=sconfig)
+    for path in ("grid", "chain"):
+        gf, gsteps = kernels.run_until_quiet(sdt, sstate, 64, sconfig, True, path=path)
+        if max_abs_err(gf, sf) or int(gsteps) != int(ssteps):
+            raise AssertionError(f"{path} differs from plain at I=T=1<<16")
+    turns = []
+    for path in COMPLETION_TURNS:
+        r = completion_ms(dt, state, config, path, steps)
+        r16 = completion_ms(sdt, sstate, sconfig, path, int(ssteps))
+        turns.append({**r, **{f"{k}_T65536": v for k, v in r16.items()}})
+    log(f"phase5 A/B [{card}] turns {list(COMPLETION_TURNS)} (I=T=1<<20 unless marked):")
+    for key in turns[0]:
+        log(f"  {key}: {[round(r[key], 6) if isinstance(r[key], float) else r[key] for r in turns]}")
+    grid_ms = (turns[1]["call_ms"] + turns[2]["call_ms"]) / 2
+    chain_ms = (turns[0]["call_ms"] + turns[3]["call_ms"]) / 2
+    step_ms = (turns[1]["step_ms"] + turns[2]["step_ms"]) / 2
+    chain_step_ms = (turns[0]["step_ms"] + turns[3]["step_ms"]) / 2
+    log(f"phase5 timing [{card}]: grid kernel {grid_ms:.4f} ms per call "
+        f"({transitions / grid_ms * 1e3:.1f} transitions/s), {step_ms:.4f} ms per live "
+        f"lock-step, {turns[1]['grid_per_call']} grid launch(es) per call; forced chain "
+        f"{chain_ms:.4f} ms per call, {chain_step_ms:.4f} ms per live lock-step, "
+        f"{turns[0]['grid_per_call']} grid launches per call")
+    return {"launches": launches, "ms": grid_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "err": err, "step_ms": step_ms, "step_bound_ms": step_bound,
+            "grid_launches": grid["grid"], "chain_ms": chain_ms, "chain_step_ms": chain_step_ms,
+            "chain_grid_launches": turns[0]["grid_per_call"], "steps": steps}
 
 
 def serving_timings(slice_info: dict) -> dict:
@@ -663,7 +743,7 @@ def phase_sharded_vs_plain(rng, dev) -> dict:
         kprev = ks
         A.reset_launch_counts()
         ks, krows = collect(dt, ks)
-        if A.grid_launch_counts() != {"fused": 1, "chain": 0, "combine": 0}:
+        if A.grid_launch_counts() != {"fused": 1, "chain": 0, "combine": 0, "grid": 0}:
             raise AssertionError("the sharded chunk was not one fused launch")
         cs, crows = kernels.run_steps(dt, cs, 8, config, auto_jobs=False, emit_events=True,
                                       mode="collect", num_shards=N_SHARDS, sharded=True,
@@ -784,7 +864,7 @@ def phase_mesh_slice(rng, dev, card: str) -> dict:
     mesh_wall = time.perf_counter() - t0
     launches = A.launch_counts()
     grid = A.grid_launch_counts()
-    if grid != {"fused": launches["sharded_collect"], "chain": 0, "combine": 0}:
+    if grid != {"fused": launches["sharded_collect"], "chain": 0, "combine": 0, "grid": 0}:
         raise AssertionError(f"the mesh chunks were not one fused launch each: {grid}, "
                              f"{launches['sharded_collect']} sharded chunks")
     solo, solo_walls = [], []
@@ -1019,28 +1099,48 @@ def decision_err(got, want) -> int:
     return max_abs_err(dict(zip("msc", got)), dict(zip("msc", want)))
 
 
-def decision_device_ms(atoms, keys, valid) -> tuple[float, float | None]:
-    """The decision kernel without its wrapper: raw launches back to back on
-    preallocated outputs (CUDA events), and the kernel's own time from a
-    torch.profiler trace of 20 launches (None when the trace shows none)."""
+def decision_launcher(kernel: str, atoms, keys, valid):
+    """A raw launch of one decision kernel on preallocated outputs (no
+    wrapper work). ``atoms`` is (kind, lo, hi, flags), the order of
+    ``run_decision``; the C entries take (kind, flags, lo, hi)."""
     lib = kernels.load().lib
-    N, I, R, K = keys.shape[0], *atoms[0].shape
+    kind, lo, hi, flags = atoms
+    N, I, R, K = keys.shape[0], *kind.shape
     m = torch.empty((N, R), dtype=torch.bool, device=keys.device)
     counts = torch.empty(N, dtype=torch.int32, device=keys.device)
     selected = torch.empty_like(counts)
-    args = ([a.data_ptr() for a in atoms] + [keys.data_ptr(), valid.data_ptr(), N, I, R, K,
-            m.data_ptr(), counts.data_ptr(), selected.data_ptr(),
-            torch.cuda.current_stream().cuda_stream])
-    back_to_back = time_ms(lambda: lib.zt_decision(*args), 200)
+    ptrs = [t.data_ptr() for t in (kind, flags, lo, hi, keys, valid)]
+    outs = [m.data_ptr(), counts.data_ptr(), selected.data_ptr(),
+            torch.cuda.current_stream().cuda_stream]
+    args = ptrs + [N, I, R, K] + outs
+    fn = lib.zt_decision_lanes if kernel == "lanes" else lib.zt_decision
+    keep = (m, counts, selected)
+
+    def launch():
+        fn(*args)
+        return keep  # the outputs live as long as the launcher
+    return launch
+
+
+def decision_device_ms(kernel: str, atoms, keys, valid) -> tuple[float, float | None]:
+    """One decision kernel without its wrapper: raw launches back to back
+    on preallocated outputs (CUDA events), and the kernel's own time from a
+    torch.profiler trace of 20 launches (None when the trace shows none)."""
+    launch = decision_launcher(kernel, atoms, keys, valid)
+    back_to_back = time_ms(launch, 200)
     from torch.profiler import ProfilerActivity, profile
+
+    def ours(key: str) -> bool:
+        return "k_decision_lanes" in key if kernel == "lanes" else (
+            "k_decision" in key and "lanes" not in key)
 
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(20):
-                lib.zt_decision(*args)
+                launch()
             torch.cuda.synchronize()
         total_us = sum(getattr(e, "device_time_total", 0) or 0 for e in prof.key_averages()
-                       if "k_decision" in e.key)
+                       if ours(e.key))
     except RuntimeError as exc:  # no CUPTI trace on this machine: not measured
         log(f"torch.profiler gave no trace: {exc}")
         total_us = 0
@@ -1150,31 +1250,50 @@ def phase_decision(rng, dev, card: str) -> dict:
     for name, (t, ctxs, k, v) in geometries.items():
         atoms = [torch.from_numpy(a).to(dev) for a in (t.kind, t.lo, t.hi, t.flags)]
         kk, vv = torch.from_numpy(k).to(dev), torch.from_numpy(v).to(dev)
-        got = D.evaluate_batch(*atoms, kk, vv)
         plain = D._evaluate_batch(*atoms, kk, vv)
-        err = decision_err(got, plain)
+        got = D.evaluate_batch(*atoms, kk, vv)
+        err = max(decision_err(got, plain),
+                  decision_err(kernels.run_decision(*atoms, kk, vv, kernel="serial"), plain))
         info["err"] = max(info["err"], err)
         if err:
-            raise AssertionError(f"{name}: decision kernel differs from plain")
+            raise AssertionError(f"{name}: a decision kernel differs from plain")
         check_lists("band" if name == "bench" else t, ctxs, plain, name, dev)
         bound = decision_bound(atoms, kk, vv)
-        ms = time_ms(lambda: kernels.run_decision(*atoms, kk, vv), 50)
         plain_ms = time_ms(lambda: D._evaluate_batch(*atoms, kk, vv), 3)
-        device_ms, profiled_ms = decision_device_ms(atoms, kk, vv)
+        # the two layouts in turns: wrapper call, raw launches, profiler time
+        turns = []
+        for kernel in DECISION_TURNS:
+            device_ms, profiled_ms = decision_device_ms(kernel, atoms, kk, vv)
+            turns.append({"ms": time_ms(lambda: kernels.run_decision(*atoms, kk, vv,
+                                                                     kernel=kernel), 50),
+                          "device_ms": device_ms, "profiled_ms": profiled_ms})
         A.reset_launch_counts()
         kernels.run_decision(*atoms, kk, vv)
         grid = A.launch_counts()["decision"]
-        info[name] = {"ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
-                      "profiled_ms": profiled_ms, "grid_launches": grid, **bound}
+
+        def mean(key, kernel):
+            """The mean over a layout's turns that measured it (None: none did)."""
+            vals = [r[key] for r, k in zip(turns, DECISION_TURNS)
+                    if k == kernel and r[key] is not None]
+            return sum(vals) / len(vals) if vals else None
+
+        info[name] = {"ms": mean("ms", "lanes"), "plain_ms": plain_ms,
+                      "device_ms": mean("device_ms", "lanes"),
+                      "profiled_ms": mean("profiled_ms", "lanes"),
+                      "serial_ms": mean("ms", "serial"),
+                      "serial_profiled_ms": mean("profiled_ms", "serial"),
+                      "grid_launches": grid, **bound}
         N = k.shape[0]
         I, R, K = t.kind.shape
-        log(f"phase8 {name} [{card}]: N={N} I={I} R={R} K={K}, m/selected/counts "
+        log(f"phase8 {name} [{card}]: N={N} I={I} R={R} K={K} "
+            f"({kernels.decision_lanes_plan(I, R, K)}), m/selected/counts of both layouts "
             f"byte-equal to plain, lists equal under {len(POLICIES)} policies, "
-            f"{int(got[2].gt(0).sum())} contexts matched; wrapper call {ms:.4f} ms, "
-            f"launches back to back {device_ms:.4f} ms, kernel by the profiler "
-            f"{'not measured' if profiled_ms is None else f'{profiled_ms:.4f} ms'}, "
-            f"plain {plain_ms:.4f} ms; bound {bound['bound_ms'] * 1e3:.3f} us by "
-            f"{bound['bound_by']} ({bound['bytes']} B, {bound['ops']} int32 ops)")
+            f"{int(got[2].gt(0).sum())} contexts matched; plain {plain_ms:.4f} ms; bound "
+            f"{bound['bound_ms'] * 1e3:.3f} us by {bound['bound_by']} ({bound['bytes']} B, "
+            f"{bound['ops']} int32 ops)")
+        log(f"phase8 {name} A/B [{card}] turns {list(DECISION_TURNS)}:")
+        for key in turns[0]:
+            log(f"  {key}: {[None if r[key] is None else round(r[key], 6) for r in turns]}")
     return info
 
 
@@ -1315,6 +1434,14 @@ def main() -> int:
     log(f"phase2 fused chunk: {res}; ptxas: {' | '.join(kernels.ptxas_report('k_chunk'))}")
     if res["max_active_clusters"] < N_SHARDS:
         raise AssertionError(f"{N_SHARDS} shard clusters do not fit on the card at once")
+    res = kernels.complete_resources()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"phase2 grid kernel: {res} on {sms} SMs (co-resident grid "
+        f"{res['grid_blocks']} blocks); ptxas: {' | '.join(kernels.ptxas_report('k_complete'))}")
+    if res["grid_blocks"] != min(res["blocks_per_sm"] * sms, kernels.GRID_MAX_BLOCKS):
+        raise AssertionError("the grid kernel's grid is not the card's co-resident grid")
+    log(f"phase2 decision lanes layout: ptxas: "
+        f"{' | '.join(kernels.ptxas_report('k_decision_lanes'))}")
 
     worst = phase_kernel_vs_plain(rng, dev)
     slice_info = phase_slice(rng, dev, card)
@@ -1364,12 +1491,15 @@ def main() -> int:
         f"({slice_info['decoded_steps'] / 8} decoded live steps), "
         f"run_collect {slice_info['launches']['run_collect'] / 8}")
     wide = decision["wide"]
-    log(f"decision timings [{card}]: benchmark geometry wrapper call "
-        f"{timing['decision']['ms']:.4f} ms, launches back to back "
-        f"{timing['decision']['device_ms']:.4f} ms (plain {timing['decision']['plain_ms']:.4f}, "
+    log(f"decision timings [{card}] (lanes layout; serial in brackets): benchmark geometry "
+        f"wrapper call {timing['decision']['ms']:.4f} [{timing['decision']['serial_ms']:.4f}] "
+        f"ms, launches back to back {timing['decision']['device_ms']:.4f} ms, kernel by the "
+        f"profiler {timing['decision']['profiled_ms']} [{timing['decision']['serial_profiled_ms']}] "
+        f"ms (plain {timing['decision']['plain_ms']:.4f}, "
         f"bound {timing['decision']['bound_ms'] * 1e3:.3f} us by "
-        f"{timing['decision']['bound_by']}); wide geometry wrapper call {wide['ms']:.4f} ms, "
-        f"back to back {wide['device_ms']:.4f} ms "
+        f"{timing['decision']['bound_by']}); wide geometry wrapper call {wide['ms']:.4f} "
+        f"[{wide['serial_ms']:.4f}] ms, back to back {wide['device_ms']:.4f} ms, profiler "
+        f"{wide['profiled_ms']} [{wide['serial_profiled_ms']}] ms "
         f"(plain {wide['plain_ms']:.4f}, bound {wide['bound_ms'] * 1e3:.3f} us by "
         f"{wide['bound_by']}); batch_evaluate {decision['rows_per_s']:.1f} rows/s; "
         f"launches on its path {decision['launches']['decision']}; fault seam: CPU oracle "
@@ -1402,6 +1532,12 @@ def main() -> int:
             "path": MAIN_PATH[name], "grid_launches": t["grid_launches"],
             "chain_ms": t.get("chain_ms"),
         })
+        if name == "run_to_completion":
+            kernels_line[-1].update(step_ms=t["step_ms"], step_bound_ms=t["step_bound_ms"],
+                                    chain_step_ms=t["chain_step_ms"], live_steps=t["steps"])
+        if name == "decision":
+            kernels_line[-1].update(serial_ms=t["serial_ms"], profiled_ms=t["profiled_ms"],
+                                    serial_profiled_ms=t["serial_profiled_ms"])
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -281,6 +281,27 @@ def test_run_to_completion_byte_equal(name):
     assert tsteps.dtype == torch.int32 and int(jsteps) == int(tsteps)
 
 
+@pytest.mark.parametrize("auto_jobs", [False, True])
+@pytest.mark.parametrize("max_steps", [0, 1, 3])
+@pytest.mark.parametrize("name", ["one_task", "fork_join", "scoped_join", "mi_parallel",
+                                  "mi_sequential"])
+def test_run_to_completion_cut_byte_equal(name, max_steps, auto_jobs):
+    """The loop's exit: cut at max_steps while tokens are still live (0: the
+    copy only), with and without auto jobs; steps, counters and state
+    byte-equal to the reference's while_loop."""
+    tables = _tables(name)
+    I = 64
+    jdt, js, tdt, ts = _both(tables, _arrays(tables, I, _token_capacity(tables, I), seed=13))
+    config = tables.kernel_config
+    jf, jsteps = JA.run_to_completion(jdt, js, max_steps=max_steps, auto_jobs=auto_jobs,
+                                      config=config)
+    tf, tsteps = TA.run_to_completion(tdt, ts, max_steps=max_steps, auto_jobs=auto_jobs,
+                                      config=_port_config(config))
+    _assert_equal(jf, tf)
+    assert tsteps.dtype == torch.int32 and int(jsteps) == int(tsteps) == max_steps
+    assert bool((tf["elem"] >= 0).any())  # cut while tokens are live
+
+
 @pytest.mark.parametrize("emit_events", [False, True])
 @pytest.mark.parametrize("auto_jobs", [False, True])
 @pytest.mark.parametrize("name", ["mixed", "scoped_join"])

@@ -175,8 +175,11 @@ def test_run_collect_waves_match_plain(cuda, name, I, T, path):
 
 @pytest.mark.parametrize("name,I,T", CASES)
 def test_run_to_completion_matches_plain(cuda, name, I, T):
+    """The public wrapper: one launch of the grid kernel per call."""
     tables, dt, state = _setup(name, I, T, seed=11, device=cuda)
+    A.reset_launch_counts()
     ks, ksteps = A.run_to_completion(dt, state, max_steps=100, config=tables.kernel_config)
+    assert A.grid_launch_counts() == {"fused": 0, "chain": 0, "combine": 0, "grid": 1}
     ps, psteps = A.run_to_completion_plain(dt, state, max_steps=100,
                                            config=tables.kernel_config)
     _assert_state_equal(ks, ps)
@@ -263,12 +266,18 @@ def test_launch_counts(cuda):
     A.run_collect(dt, state, n_steps=8, config=tables.kernel_config)
     assert A.launch_counts() == {"step": 8, "run_collect": 1, "run_to_completion": 0,
                                  "sharded_step": 0, "sharded_collect": 0, "decision": 0}
-    # one_task quiesces within the first block of steps: the host stops there
+    # the grid kernel decides its steps on the device: it counts one call
+    # and no host-enqueued step
     A.run_to_completion(dt, state, max_steps=64, config=tables.kernel_config)
     A.run_collect_plain(dt, state, n_steps=8, config=tables.kernel_config)
     A.step_plain(dt, state, config=tables.kernel_config)
+    assert A.launch_counts() == {"step": 8, "run_collect": 1, "run_to_completion": 1,
+                                 "sharded_step": 0, "sharded_collect": 0, "decision": 0}
+    # on the forced chain, one_task quiesces within the first block of
+    # steps: the host stops there
+    kernels.run_until_quiet(dt, state, 64, tables.kernel_config, True, path="chain")
     assert A.launch_counts() == {"step": 8 + kernels.COMPLETION_BLOCK_STEPS,
-                                 "run_collect": 1, "run_to_completion": 1,
+                                 "run_collect": 1, "run_to_completion": 2,
                                  "sharded_step": 0, "sharded_collect": 0, "decision": 0}
 
 
@@ -497,10 +506,10 @@ def test_shape_rule_at_the_threshold(cuda, T, path):
         _assert_state_equal(ks, ps)
     grid = A.grid_launch_counts()
     if path == "fused":
-        assert grid == {"fused": 6, "chain": 0, "combine": 0}
+        assert grid == {"fused": 6, "chain": 0, "combine": 0, "grid": 0}
     else:
         assert grid == {"fused": 0, "chain": 6 * _chain_launches(config, 1, False),
-                        "combine": 0}
+                        "combine": 0, "grid": 0}
 
 
 @pytest.mark.parametrize("name", ["mixed", "fork_join", "nomatch"])
@@ -553,22 +562,25 @@ def test_grid_launch_counts(cuda):
     config = tables.kernel_config
     A.reset_launch_counts()
     A.run_collect(dt, state, n_steps=8, config=config)
-    assert A.grid_launch_counts() == {"fused": 1, "chain": 0, "combine": 0}
+    assert A.grid_launch_counts() == {"fused": 1, "chain": 0, "combine": 0, "grid": 0}
     A.reset_launch_counts()
     kernels.run_steps(dt, state, 8, config, auto_jobs=False, emit_events=True,
                       mode="collect", path="chain")
     assert A.grid_launch_counts() == {"fused": 0, "chain": _chain_launches(config, 8, True),
-                                      "combine": 0}
+                                      "combine": 0, "grid": 0}
     # the same lock-step counts on both paths
     assert A.launch_counts()["step"] == 8
     stables, sdt, sstate = _sharded_state(3, cuda, False)
     A.reset_launch_counts()
     M.make_sharded_step(M.make_mesh(3, cuda), config=stables.kernel_config)(sdt, sstate)
-    assert A.grid_launch_counts() == {"fused": 1, "chain": 0, "combine": 1}
+    assert A.grid_launch_counts() == {"fused": 1, "chain": 0, "combine": 1, "grid": 0}
     A.reset_launch_counts()
     A.run_to_completion(dt, state, max_steps=8, config=config)
+    assert A.grid_launch_counts() == {"fused": 0, "chain": 0, "combine": 0, "grid": 1}
+    A.reset_launch_counts()
+    kernels.run_until_quiet(dt, state, 8, config, True, path="chain")
     grid = A.grid_launch_counts()
-    assert grid["fused"] == 0 and grid["chain"] > 0
+    assert grid["fused"] == grid["grid"] == 0 and grid["chain"] > 0
 
 
 def test_fused_resources(cuda):
@@ -578,6 +590,92 @@ def test_fused_resources(cuda):
     assert res["registers"] > 0 and res["max_active_clusters"] >= 8
     lines = kernels.ptxas_report("k_chunk")
     assert any("registers" in line for line in lines)
+
+
+# ---------------------------------------------------------------------------
+# the grid kernel (run_to_completion in one cooperative launch)
+
+
+def _mi_setup(sequential: bool, device):
+    """The MI body tables at I = 64, T = 512, with admission-predicted
+    cardinalities (as in test_mi_bodies_match_plain)."""
+    dt = A.DeviceTables.from_numpy(_mi_tables(sequential), device)
+    config = KernelConfig(has_joins=False, has_conditions=False, has_scopes=False,
+                          has_mi=True)
+    I, T = 64, 512
+    arrays = {
+        "elem": np.full(T, -1, np.int32), "phase": np.zeros(T, np.int32),
+        "inst": np.zeros(T, np.int32), "def_of": np.zeros(I, np.int32),
+        "var_slots": np.zeros((I, 1, 2), np.int32),
+        "join_counts": np.zeros((I, 5), np.int32),
+        "mi_left": np.zeros((I, 5), np.int32), "done": np.zeros(I, np.bool_),
+    }
+    arrays["elem"][:I] = 1
+    arrays["inst"][:I] = np.arange(I)
+    arrays["mi_left"][:, 2] = np.random.default_rng(5).integers(1, 5, I)
+    return dt, config, kb.group_state(arrays, device)
+
+
+@pytest.mark.parametrize("auto_jobs", [True, False])
+@pytest.mark.parametrize("max_steps", [0, 1, 3, 100])
+@pytest.mark.parametrize("name", sorted(WORKLOADS) + ["mi_parallel", "mi_sequential"])
+def test_completion_paths_match_plain(cuda, name, max_steps, auto_jobs):
+    """The grid kernel against the forced chain and the plain version: the
+    loop cut at 0, 1 and 3 steps and run to its end, both job modes."""
+    if name.startswith("mi_"):
+        dt, config, state = _mi_setup(name == "mi_sequential", cuda)
+    else:
+        tables, dt, state = _setup(name, 64, None, seed=29, device=cuda)
+        config = tables.kernel_config
+    gs, gsteps = kernels.run_until_quiet(dt, state, max_steps, config, auto_jobs)
+    cs, csteps = kernels.run_until_quiet(dt, state, max_steps, config, auto_jobs,
+                                         path="chain")
+    ps, psteps = A.run_to_completion_plain(dt, state, max_steps, auto_jobs, config)
+    _assert_state_equal(gs, ps)
+    _assert_state_equal(cs, ps)
+    assert gsteps.dtype == torch.int32 and int(gsteps) == int(csteps) == int(psteps)
+
+
+def _ceiling(n: int, device):
+    tables = compile_tables([transform(W.one_task())])
+    state = A.make_state(tables, n, np.zeros(n, np.int32), token_capacity=n, device=device)
+    return A.DeviceTables.from_numpy(tables, device), tables.kernel_config, state
+
+
+def test_grid_completion_at_1_16(cuda):
+    dt, config, state = _ceiling(1 << 16, cuda)
+    gs, gsteps = A.run_to_completion(dt, state, max_steps=64, config=config)
+    ps, psteps = A.run_to_completion_plain(dt, state, max_steps=64, config=config)
+    _assert_state_equal(gs, ps)
+    assert int(gsteps) == int(psteps) > 0 and bool(gs["done"].all())
+
+
+def test_grid_completion_is_deterministic(cuda):
+    """20 calls at I = T = 1 << 20: every output byte-equal to the plain
+    version (a race at a grid barrier or in the block-total scan would show
+    as a run that differs)."""
+    dt, config, state = _ceiling(1 << 20, cuda)
+    want, wsteps = A.run_to_completion_plain(dt, state, max_steps=64, config=config)
+    for _ in range(20):
+        got, gsteps = A.run_to_completion(dt, state, max_steps=64, config=config)
+        _assert_state_equal(got, want)
+        assert int(gsteps) == int(wsteps)
+
+
+def test_grid_completion_is_one_launch(cuda):
+    """One grid launch per run_to_completion call, whatever the steps, and
+    a grid that fills the card at once."""
+    dt, config, state = _ceiling(1 << 16, cuda)
+    for max_steps in (0, 1, 64):
+        A.reset_launch_counts()
+        A.run_to_completion(dt, state, max_steps=max_steps, config=config)
+        assert A.grid_launch_counts() == {"fused": 0, "chain": 0, "combine": 0, "grid": 1}
+        assert A.launch_counts()["run_to_completion"] == 1
+    res = kernels.complete_resources()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert res["registers"] > 0 and res["blocks_per_sm"] >= 1
+    assert res["grid_blocks"] == min(res["blocks_per_sm"] * sms, kernels.GRID_MAX_BLOCKS)
+    assert any("registers" in line for line in kernels.ptxas_report("k_complete"))
 
 
 # ---------------------------------------------------------------------------
@@ -594,16 +692,59 @@ def _atoms(seed: int, N: int, I: int, R: int, K: int):
             rng.choice(_PLANES, (N, I, 2)), rng.random((N, I)) < 0.8)
 
 
+# the shapes of tests/test_torch_decision.py's SHAPES beside these, and a
+# table too wide for shared memory at N = 16,384 (R = 2048)
+@pytest.mark.parametrize("kernel", kernels.DECISION_KERNELS)
 @pytest.mark.parametrize("N,I,R,K", [(1000, 2, 8, 4), (777, 3, 40, 2), (0, 2, 5, 3),
                                      (300, 1, 1, 1), (2048, 4, 512, 4), (513, 2, 33, 7),
-                                     (256, 0, 9, 2), (256, 2, 9, 0)])
-def test_decision_kernel_matches_plain(cuda, N, I, R, K):
+                                     (256, 0, 9, 2), (256, 2, 9, 0), (64, 2, 8, 4),
+                                     (97, 3, 40, 2), (48, 4, 70, 4), (20, 2, 33, 1),
+                                     (45, 2, 31, 3), (45, 2, 32, 4), (45, 3, 33, 2),
+                                     (45, 2, 64, 3), (9, 2, 1025, 2), (13, 2, 20, 64),
+                                     (1, 3, 40, 4), (37, 2, 300, 3), (600, 64, 8, 2),
+                                     (16384, 4, 2048, 4), (513, 2, 8, 4), (257, 2, 33, 2),
+                                     (129, 3, 100, 2), (33, 2, 512, 4), (17, 4, 1024, 2),
+                                     (70, 4, 512, 4), (5, 4, 2048, 4), (7, 2, 1025, 64),
+                                     (21, 64, 8, 4), (11, 0, 9, 2), (19, 2, 65, 2),
+                                     (23, 2, 513, 2), (2, 2, 96, 3), (40, 2, 257, 3),
+                                     (60, 5, 160, 5), (1, 1, 2048, 1)])
+def test_decision_kernel_matches_plain(cuda, N, I, R, K, kernel):
     arrays = [torch.from_numpy(np.array(a)).to(cuda) for a in _atoms(N + R, N, I, R, K)]
-    got = D.evaluate_batch(*arrays)
+    if kernel == "lanes":
+        got = D.evaluate_batch(*arrays)
+    else:
+        got = kernels.run_decision(*arrays, kernel=kernel)
     want = D._evaluate_batch(*arrays)
     for name, a, b in zip(("m", "selected", "counts"), got, want):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         assert torch.equal(a, b), f"{name} differs at {(a != b).nonzero()[:5].tolist()}"
+
+
+@pytest.mark.parametrize("I,R,K,keys,atoms", [
+    (2, 8, 4, True, True),       # the benchmark table
+    (4, 512, 4, True, True),     # the wide table: 131 KB of intervals
+    (4, 2048, 4, True, False),   # 512 KB of intervals: read from device memory
+    (2, 1025, 64, True, False),
+    (64, 8, 4, False, True),     # 512 contexts x 64 inputs of keys: 288 KB
+    (0, 9, 2, True, True),
+    (2, 31, 3, True, True), (2, 33, 2, True, True), (2, 64, 3, True, True),
+    (2, 65, 2, True, True), (2, 300, 3, True, True), (2, 513, 2, True, True),
+])
+def test_decision_lanes_plan(cuda, I, R, K, keys, atoms):
+    """The lanes layout's shape is fixed from the table alone: ceil(R / 32)
+    rule words rounded up to a power of two (at most 32) lanes per context,
+    and what is staged fits the 200 KB budget (the H100 gives a block at most
+    227 KB) with at least one block per SM."""
+    plan = kernels.decision_lanes_plan(I, R, K)
+    words = -(-R // 32)
+    lanes = min(32, 1 << (words - 1).bit_length())
+    assert plan["lanes"] == lanes
+    assert (plan["stage_keys"], plan["stage_atoms"]) == (keys, atoms)
+    want = ((plan["threads"] // lanes) * I * 9 if keys else 0) + \
+        (I * K * 32 * words * 16 + I * words * 4 if atoms else 0)
+    assert plan["smem_bytes"] == want <= 200 * 1024 < 227 * 1024
+    assert plan["blocks_per_sm"] >= 1
+    assert kernels.decision_lanes_plan(I, R, K) == plan
 
 
 def test_decision_launch_counts(cuda):

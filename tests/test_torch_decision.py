@@ -224,8 +224,21 @@ def evaluate_both(arrays):
     return [np.asarray(a) for a in ref], [t.numpy() for t in port]
 
 
+# the first six, then the edges of the lanes layout (csrc/decision.cu): a
+# ragged, a whole and a one-rule-over word (R = 31, 32, 33), two words, a lane
+# that loops over words (R = 1025: 33 words on 32 lanes), the most atoms a
+# cell takes (K = 64), one context, and context counts that are not a
+# multiple of the contexts per warp (R = 300: 16 lanes, 2 contexts a warp)
 SHAPES = [(64, 2, 8, 4), (97, 3, 40, 2), (0, 2, 5, 3), (33, 1, 1, 1), (48, 4, 70, 4),
-          (20, 2, 33, 1)]
+          (20, 2, 33, 1), (45, 2, 31, 3), (45, 2, 32, 4), (45, 3, 33, 2), (45, 2, 64, 3),
+          (9, 2, 1025, 2), (13, 2, 20, 64), (1, 3, 40, 4), (37, 2, 300, 3),
+          # the lanes layout's plans: a whole tile and one context past it
+          # (512, 256, 128, 32 and 16 contexts a block), ragged last words,
+          # tables staged or read from device memory, many or no inputs
+          (513, 2, 8, 4), (257, 2, 33, 2), (129, 3, 100, 2), (33, 2, 512, 4),
+          (17, 4, 1024, 2), (70, 4, 512, 4), (5, 4, 2048, 4), (7, 2, 1025, 64),
+          (21, 64, 8, 4), (11, 0, 9, 2), (19, 2, 65, 2), (23, 2, 513, 2),
+          (2, 2, 96, 3), (40, 2, 257, 3), (60, 5, 160, 5), (1, 1, 2048, 1)]
 
 
 @pytest.mark.parametrize("N,I,R,K", SHAPES)
@@ -291,6 +304,14 @@ def test_run_decision_refuses_bad_inputs():
     with pytest.raises(ValueError, match="atoms"):
         kernels.run_decision(*(torch.zeros((2, 4, wide) + tail, dtype=torch.int32)
                                for tail in ((), (2,), (2,), ())), keys, valid)
+
+
+def test_run_decision_refuses_an_unknown_kernel():
+    arrays = [torch.from_numpy(np.array(a))
+              for a in random_atoms(np.random.default_rng(6), 8, 2, 4, 2)]
+    assert kernels.DECISION_KERNELS == ("lanes", "serial")
+    with pytest.raises(ValueError, match="kernel"):
+        kernels.run_decision(*arrays, kernel="warps")
 
 
 # ---------------------------------------------------------------------------

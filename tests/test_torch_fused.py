@@ -43,7 +43,8 @@ def _forbid_binding(monkeypatch):
         raise AssertionError("the CPU route reached the CUDA binding")
 
     for name in ("load", "build", "allocate", "prepare", "launch_fused", "launch_steps",
-                 "launch_prepare", "run_steps", "run_sharded_step", "run_until_quiet"):
+                 "launch_prepare", "launch_complete", "run_steps", "run_sharded_step",
+                 "run_until_quiet"):
         monkeypatch.setattr(kernels, name, refuse)
 
 
@@ -78,7 +79,8 @@ def test_shape_rule_is_pure(monkeypatch):
     limit = kernels.FUSED_MAX_TOKENS
     answers = [kernels.choose_path(T) for T in (64, 8192, limit, 2 * limit, 1 << 20)] * 2
     assert answers == ["fused", "fused", "fused", "chain", "chain"] * 2
-    assert kernels.PATHS == ("fused", "chain")
+    assert kernels.STEP_PATHS == ("fused", "chain")
+    assert kernels.PATHS == ("fused", "chain", "grid")
 
 
 def test_path_keyword_is_checked():
@@ -95,8 +97,27 @@ def test_public_functions_do_not_take_the_path():
     path; the public wrappers follow the shape rule."""
     for fn in (A.step, A.run_collect, A.run_to_completion, M.make_sharded_step):
         assert "path" not in inspect.signature(fn).parameters
-    for fn in (kernels.run_steps, kernels.run_sharded_step):
+    for fn in (kernels.run_steps, kernels.run_sharded_step, kernels.run_until_quiet):
         assert inspect.signature(fn).parameters["path"].default is None
+
+
+def test_completion_path_keyword_is_checked(monkeypatch):
+    """run_to_completion takes the grid kernel unless forced onto the chain;
+    the fused chunk has no completion mode, and a bad path raises before
+    anything is built or launched."""
+    assert kernels.COMPLETION_PATHS == ("grid", "chain")
+    assert kernels._pick_completion(None) == "grid"
+    assert kernels._pick_completion("grid") == "grid"
+    assert kernels._pick_completion("chain") == "chain"
+    for bad in ("fused", "graph"):
+        with pytest.raises(ValueError, match="path"):
+            kernels._pick_completion(bad)
+    with pytest.raises(ValueError, match="path"):
+        kernels._pick("grid", 8192)  # the grid kernel runs no step or chunk
+    for name in ("load", "build", "allocate", "prepare", "launch_complete"):
+        monkeypatch.setattr(kernels, name, lambda *a, **k: pytest.fail("reached the binding"))
+    with pytest.raises(ValueError, match="path"):
+        kernels.run_until_quiet(None, {}, 8, None, True, path="fused")
 
 
 def test_cpu_route_never_reaches_the_binding(monkeypatch):
@@ -134,7 +155,7 @@ def test_launch_counters_keep_their_keys():
     grid launches are a counter of their own, and the reset clears both."""
     assert set(kernels.LAUNCHES) == {"step", "run_collect", "run_to_completion",
                                      "sharded_step", "sharded_collect", "decision"}
-    assert set(kernels.GRID_LAUNCHES) == {"fused", "chain", "combine"}
+    assert set(kernels.GRID_LAUNCHES) == {"fused", "chain", "combine", "grid"}
     kernels.LAUNCHES["step"] = 3
     kernels.GRID_LAUNCHES["fused"] = 2
     counts = A.launch_counts()
@@ -142,7 +163,7 @@ def test_launch_counters_keep_their_keys():
     assert kernels.LAUNCHES["step"] == 3 and A.grid_launch_counts()["fused"] == 2
     A.reset_launch_counts()
     assert set(A.launch_counts().values()) == {0}
-    assert A.grid_launch_counts() == {"fused": 0, "chain": 0, "combine": 0}
+    assert A.grid_launch_counts() == {"fused": 0, "chain": 0, "combine": 0, "grid": 0}
 
 
 def test_tables_struct_is_built_once_per_table_set():

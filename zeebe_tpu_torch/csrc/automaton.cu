@@ -38,7 +38,7 @@
 // tokens), each a few microseconds of latency-bound work, so at the serving
 // geometry the dependencies between phases bound the step, not bytes.
 //
-// Two paths compute the same function from the same per-item device
+// Three paths compute the same function from the same per-item device
 // functions (classify_token, join_rank_request, place_request, ...):
 //
 //   - The fused chunk (k_chunk, zt_collect_fused), for shards of up to
@@ -58,12 +58,16 @@
 //     wrote. The working set of a shard at the serving geometry (0.45 MB of
 //     state, ~1 MB of scratch, 1.3 MB of rows per chunk) stays in the 50 MB
 //     L2 across phases.
-//   - The chain (zt_prepare + zt_steps), for larger shards and for
-//     run_to_completion: every phase one grid-wide launch over all shards
-//     (blockIdx.y, or blockIdx.z for the scan, or blockIdx.x for the
-//     per-shard control kernels, is the shard), ~10 launches per step, all
-//     enqueued back to back; the early exit is a per-shard device flag (go)
-//     that every block reads first.
+//   - The chain (zt_prepare + zt_steps), for larger shards (and
+//     run_to_completion when forced): every phase one grid-wide launch over
+//     all shards (blockIdx.y, or blockIdx.z for the scan, or blockIdx.x for
+//     the per-shard control kernels, is the shard), ~10 launches per step,
+//     all enqueued back to back; the early exit is a per-shard device flag
+//     (go) that every block reads first.
+//   - The grid kernel (k_complete, zt_complete), for run_to_completion: ONE
+//     cooperative launch per call that spans the whole card and runs the
+//     reference's whole while_loop on the device (see the note at
+//     k_complete).
 //
 // Both: kernels allocate nothing (the wrapper hands in the working state,
 // copied from the caller's so the API stays functional, and one int32
@@ -121,6 +125,11 @@ constexpr int CLUSTER = 8;
 constexpr int FUSED_THREADS = 1024;
 constexpr int FUSED_MAX_TOKENS = 1 << 14;
 
+// the grid kernel: threads per block (two blocks per SM at 64 registers),
+// and the most blocks it launches (block_sums holds three totals per block)
+constexpr int GRID_THREADS = 512;
+constexpr int GRID_MAX_BLOCKS = 1024;
+
 }  // namespace
 
 extern "C" {
@@ -161,7 +170,7 @@ struct ZtState {
 };
 
 struct ZtScratch {
-  int32_t* ctl;           // [NS*CTL_N] (the chain only)
+  int32_t* ctl;           // [NS*CTL_N] (the chain; the grid kernel's CTL_STEPS)
   int32_t* occ;           // [NS*I*E] live tokens inside each scope
   int32_t* pend;          // [NS*I*E] unconsumed join arrivals inside each scope
   int32_t* arrivals;      // [NS*I*E] join arrivals this step
@@ -179,7 +188,8 @@ struct ZtScratch {
   int32_t* tok_inst;      // [NS*T] start-of-step inst (local to the shard)
   int32_t* tok_elem;      // [NS*T] start-of-step elem
   int32_t* slot_of_rank;  // [NS*T] local slot of each free rank
-  int32_t* block_sums;    // [NS*(nb_free + nb_req)] (the chain only)
+  int32_t* block_sums;    // [NS*max(nb_free + nb_req, 3*GRID_MAX_BLOCKS)] (the chain:
+                          // tile sums; the grid kernel: per-block totals)
 };
 
 }  // extern "C"
@@ -291,16 +301,22 @@ __device__ __forceinline__ void prepare_token(const ZtState& in, const ZtState& 
 
 // copy-in of (instance, element) key x (global index) and its scratch.
 // join_counts / mi_left are shared with the caller's state (same pointer)
-// when the config never writes them: nothing to copy then.
+// when the config never writes them: nothing to copy then. The scope
+// counts are read only with scopes or MI, the join scratch only with joins:
+// the rest is left as it is.
 __device__ __forceinline__ void prepare_key(const ZtState& in, const ZtState& st,
-                                            const ZtScratch& sc, int64_t x) {
+                                            const ZtScratch& sc, int cfg, int64_t x) {
   if (st.join_counts != in.join_counts) st.join_counts[x] = in.join_counts[x];
   if (st.mi_left != in.mi_left) st.mi_left[x] = in.mi_left[x];
-  sc.occ[x] = 0;
-  sc.pend[x] = 0;
-  sc.arrivals[x] = 0;
-  sc.consumed[x] = 0;
-  sc.head[x] = -1;
+  if (cfg & (CFG_SCOPES | CFG_MI)) {
+    sc.occ[x] = 0;
+    sc.pend[x] = 0;
+  }
+  if (cfg & CFG_JOINS) {
+    sc.arrivals[x] = 0;
+    sc.consumed[x] = 0;
+    sc.head[x] = -1;
+  }
 }
 
 __device__ __forceinline__ void prepare_instance(const ZtState& in, const ZtState& st,
@@ -650,6 +666,45 @@ __device__ int block_exclusive_scan(int v, int* total) {
   return excl;
 }
 
+// ranks of the set flags of a block's contiguous range [lo, hi), the first
+// at `base`, in index order: tile by tile of blockDim.x * SCAN_ITEMS, each
+// thread SCAN_ITEMS neighbouring flags (a warp's loads stay on a few cache
+// lines), a block scan per tile; write(x, rank) for every set flag x
+template <class Write>
+__device__ void block_ranks(const int32_t* flag, int lo, int hi, int base, Write&& write) {
+  const int tile = (int)blockDim.x * SCAN_ITEMS;
+  for (int t0 = lo; t0 < hi; t0 += tile) {
+    const int x0 = t0 + (int)threadIdx.x * SCAN_ITEMS;
+    int f[SCAN_ITEMS];
+    int v = 0;
+#pragma unroll
+    for (int k = 0; k < SCAN_ITEMS; ++k) {
+      f[k] = x0 + k < hi ? flag[x0 + k] : 0;
+      v += f[k];
+    }
+    int total;
+    int rank = base + block_exclusive_scan(v, &total);
+#pragma unroll
+    for (int k = 0; k < SCAN_ITEMS; ++k) {
+      if (f[k]) write(x0 + k, rank++);
+    }
+    base += total;
+  }
+}
+
+// block-wide sum of one int per thread; every thread gets the sum
+__device__ int block_sum(int v) {
+  __shared__ int warp_part[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = __reduce_add_sync(0xffffffffu, v);
+  if (lane == 0) warp_part[warp] = v;
+  __syncthreads();
+  int s = lane < (int)(blockDim.x >> 5) ? warp_part[lane] : 0;
+  s = __reduce_add_sync(0xffffffffu, s);
+  __syncthreads();  // warp_part is written again by the next call
+  return s;
+}
+
 // ---------------------------------------------------------------------------
 // The fused chunk: one cluster of CLUSTER blocks per shard, one launch for
 // the whole chunk. Every thread of the cluster reaches every cluster
@@ -692,7 +747,7 @@ k_chunk(ZtTables tb, ZtState in, ZtState st, ZtScratch sc, int n_steps, int mode
   const bool collect = mode & MODE_COLLECT;
 
   for (int x = tok.lo + tid; x < tok.hi; x += NT) prepare_token(in, st, tok0 + x);
-  for (int x = k_lo + tid; x < k_hi; x += NT) prepare_key(in, st, sc, i0 * E + x);
+  for (int x = k_lo + tid; x < k_hi; x += NT) prepare_key(in, st, sc, cfg, i0 * E + x);
   for (int x = ins.lo + tid; x < ins.hi; x += NT) {
     prepare_instance(in, st, sc, i0 + x);
     sc.pending[i0 + x] = 0;
@@ -826,12 +881,12 @@ k_chunk(ZtTables tb, ZtState in, ZtState st, ZtScratch sc, int n_steps, int mode
 // The chain: one grid-wide launch per phase over all shards.
 
 __global__ void k_prepare(ZtState in, ZtState st, ZtScratch sc, int64_t NIE, int mode,
-                          int32_t* out, int64_t out_len) {
+                          int cfg, int32_t* out, int64_t out_len) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t x0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t NT = (int64_t)st.NS * st.T, NI = (int64_t)st.NS * st.I;
   for (int64_t x = x0; x < NT; x += stride) prepare_token(in, st, x);
-  for (int64_t x = x0; x < NIE; x += stride) prepare_key(in, st, sc, x);
+  for (int64_t x = x0; x < NIE; x += stride) prepare_key(in, st, sc, cfg, x);
   for (int64_t x = x0; x < NI; x += stride) prepare_instance(in, st, sc, x);
   if (out != nullptr) {
     for (int64_t x = x0; x < out_len; x += stride) out[x] = 0;
@@ -1056,6 +1111,231 @@ __global__ void k_combine(ZtState in, ZtState st, int32_t* transitions,
   *overflow = ovf ? 1 : 0;
 }
 
+// ---------------------------------------------------------------------------
+// The grid kernel: run_to_completion in ONE launch.
+//
+// It replaces zeebe_tpu/ops/automaton.py::run_to_completion (:773), a
+// lax.while_loop of step (:366) with auto jobs and no events while any token
+// is live and fewer than max_steps steps have run, with no host round trip.
+// The chain ran it as ~7-10 grid launches per lock-step (classify, join
+// ranks, three scan passes of which one is a single block walking every tile
+// sum in series, place, finish, occupancy, end step), and the host read the
+// loop flag after every block of 8 steps; the fused chunk cannot take it
+// either: one cluster has 8 of 132 SMs, and at 1 << 20 token slots the
+// lock-step is wide.
+//
+// What bounds it on an H100: a live lock-step must read and write the state
+// arrays its KernelConfig uses once (one_task at I = T = 1 << 20: 50,331,738
+// bytes, 15 us at 3.35 TB/s), so a call is bound by its live steps times
+// those bytes, the first step reading the caller's state (the copy-in below
+// is this kernel's choice, over that bound); on top of the bytes, every
+// phase that reads what another block wrote costs one grid barrier (4 per
+// step, 5 with joins, 6 with scopes or MI).
+//
+// What the design does about it: the kernel is launched cooperatively
+// (cudaLaunchCooperativeKernel) with as many blocks as the card holds at once
+// (the occupancy API x the SM count; a grid that could not be co-resident
+// fails the launch, it never waits), and every block loops over the steps.
+// Block b owns a contiguous range of the tokens, of their requests and of
+// the instances and their keys, and walks its ranges with block-stride loops
+// (at 1 << 20 tokens, 264 blocks of 512 threads: ~8 tokens a thread). Phases
+// that read other blocks' writes are separated by cooperative_groups'
+// grid.sync(), which fences global memory on both sides of the barrier. The
+// prefix sums need no extra pass: a block's free flags and placed requests
+// are its own writes (its classify and its join ranks), so each block counts
+// its range with coalesced loads and publishes the totals, and after one
+// grid barrier every block sums the totals of the blocks below it (at most
+// GRID_MAX_BLOCKS values, from L2) and ranks its range tile by tile, each
+// thread four neighbouring flags (a per-thread contiguous segment would cost
+// an L1 wavefront per flag). The ranks are the chain's exactly. Counters go
+// to device memory as one atomic per block and step (a warp's each would
+// queue ~1 << 15 atomics on one address at 1 << 20 tokens), and a block
+// reads its instances' pending join arrivals back only when it added some.
+// The loop's exit is decided by every block from the same per-block "a token
+// is live after the step" flags, read after the same barrier, so all blocks
+// leave together; block 0 then writes the step count. Every read of a
+// per-block slot and the next write to it are separated by at least one
+// grid barrier (the totals are read before the ranks barrier and written
+// again before the next scan barrier; the live flags are read before the
+// next scan barrier and written again after it), so no slot is overwritten
+// while another block may still read it.
+__global__ void __launch_bounds__(GRID_THREADS, 2)
+k_complete(ZtTables tb, ZtState in, ZtState st, ZtScratch sc, int max_steps, int mode,
+           int cfg) {
+  cg::grid_group grid = cg::this_grid();
+  const int G = gridDim.x, b = blockIdx.x, tid = threadIdx.x, NT = blockDim.x;
+  const int T = st.T, I = st.I, E = tb.E, FO = tb.FO;
+  const Range tok = part_of(T, G, b);
+  const Range ins = part_of(I, G, b);
+  const int r_lo = tok.lo * FO, r_hi = tok.hi * FO;
+  const int k_lo = ins.lo * E, k_hi = ins.hi * E;
+  const bool scoped = cfg & (CFG_SCOPES | CFG_MI);
+  // per block: its free slots, its placed requests, a token live after the step
+  int32_t* free_tot = sc.block_sums;
+  int32_t* req_tot = free_tot + G;
+  int32_t* live_tot = req_tot + G;
+
+  // copy-in; run_to_completion's loop test before the first step
+  bool live = false;
+  for (int x = tok.lo + tid; x < tok.hi; x += NT) {
+    prepare_token(in, st, x);
+    live = live || in.elem[x] >= 0;
+  }
+  for (int x = k_lo + tid; x < k_hi; x += NT) prepare_key(in, st, sc, cfg, x);
+  for (int x = ins.lo + tid; x < ins.hi; x += NT) {
+    prepare_instance(in, st, sc, x);
+    sc.pending[x] = 0;
+  }
+  if (b == 0 && tid == 0) prepare_counters(in, st, 0);
+  int any = __syncthreads_or(live);
+  if (tid == 0) live_tot[b] = any;
+  grid.sync();
+  if (scoped) {
+    for (int x = tok.lo + tid; x < tok.hi; x += NT) occupancy_token(tb, st, sc, 0, x);
+    for (int x = k_lo + tid; x < k_hi; x += NT) occupancy_key(tb, st, sc, 0, x);
+    grid.sync();
+  }
+  int n_live = 0;
+  for (int q = tid; q < G; q += NT) n_live += live_tot[q];
+  bool go = block_sum(n_live) > 0;
+
+  int steps = 0;
+  while (go && steps < max_steps) {
+    // classify (then rank joins against every block's links)
+    bool keep = false;
+    int trans = 0, jobs = 0;
+    for (int t = tok.lo + tid; t < tok.hi; t += NT) {
+      int tr, jb;
+      bool keep_live;
+      classify_token(tb, st, sc, mode, cfg, nullptr, 0, t, tr, jb, keep_live);
+      trans += tr;
+      jobs += jb;
+      keep = keep || keep_live;
+    }
+    // one atomic per block and counter
+    trans = block_sum(trans);
+    jobs = block_sum(jobs);
+    if (tid == 0) {
+      if (trans) atomicAdd(&st.transitions[0], trans);
+      if (jobs) atomicAdd(&st.jobs_created[0], jobs);
+    }
+    if (cfg & CFG_JOINS) {
+      grid.sync();
+      for (int r = r_lo + tid; r < r_hi; r += NT) join_rank_request(tb, st, sc, 0, r);
+    }
+    __syncthreads();
+    // prefix sums: this block's free slots and placed requests are final;
+    // their totals first
+    int nf = 0, nr = 0;
+    for (int x = tok.lo + tid; x < tok.hi; x += NT) nf += sc.free_flag[x];
+    for (int r = r_lo + tid; r < r_hi; r += NT) nr += sc.proceeds[r];
+    nf = block_sum(nf);
+    nr = block_sum(nr);
+    if (tid == 0) {
+      free_tot[b] = nf;
+      req_tot[b] = nr;
+    }
+    grid.sync();
+    // offsets from the lower blocks' totals, then ranks: slot_of_rank for
+    // free slots (a completing token's slot is freed), place_rank for requests
+    int ft = 0, fb = 0, rb = 0;
+    for (int q = tid; q < G; q += NT) {
+      const int f = free_tot[q];
+      ft += f;
+      if (q < b) {
+        fb += f;
+        rb += req_tot[q];
+      }
+    }
+    const int free_total = block_sum(ft);
+    block_ranks(sc.free_flag, tok.lo, tok.hi, block_sum(fb), [&](int x, int rank) {
+      sc.slot_of_rank[rank] = x;
+      if (sc.tok_flags[x] & TF_COMPLETING) st.elem[x] = -1;
+    });
+    block_ranks(sc.proceeds, r_lo, r_hi, block_sum(rb),
+                [&](int x, int rank) { sc.place_rank[x] = rank; });
+    grid.sync();
+    // place
+    bool ovf = false;
+    for (int r = r_lo + tid; r < r_hi; r += NT) {
+      bool placed = false;
+      place_request(tb, st, sc, mode, cfg, nullptr, 0, r, free_total, placed, ovf);
+      keep = keep || placed;
+    }
+    if (__any_sync(0xffffffffu, ovf) && (tid & 31) == 0) st.overflow[0] = 1;
+    grid.sync();
+    // finish: the block's keys one per thread (each instance's pending
+    // arrivals summed by atomics), then its instances
+    bool added = false;
+    for (int x = k_lo + tid; x < k_hi; x += NT) {
+      const unsigned jc = finish_key(st, sc, cfg, x);
+      if (jc != 0) {
+        atomicAdd(&sc.pending[x / E], (int)jc);
+        added = true;
+      }
+    }
+    // the block's instances have pending arrivals only if one of its
+    // threads added some: else every pending count is 0 and stays unread
+    added = __syncthreads_or(added);
+    int newly = 0;
+    for (int i = ins.lo + tid; i < ins.hi; i += NT) {
+      // both were summed by atomics: read them back the same way
+      const int n = atomicExch(&sc.tpi[i], 0);
+      const unsigned pending = added ? (unsigned)atomicExch(&sc.pending[i], 0) : 0u;
+      newly += complete_instance(st, mode, nullptr, FO, i, i, n, pending);
+    }
+    newly = block_sum(newly);
+    if (tid == 0 && newly) {
+      atomicAdd(&st.completed[0], newly);
+      atomicAdd(&st.transitions[0], 2 * newly);
+    }
+    if (scoped) {
+      grid.sync();
+      for (int x = tok.lo + tid; x < tok.hi; x += NT) occupancy_token(tb, st, sc, 0, x);
+      for (int x = k_lo + tid; x < k_hi; x += NT) occupancy_key(tb, st, sc, 0, x);
+    }
+    any = __syncthreads_or(keep);
+    if (tid == 0) live_tot[b] = any;
+    grid.sync();
+    n_live = 0;
+    for (int q = tid; q < G; q += NT) n_live += live_tot[q];
+    go = block_sum(n_live) > 0;
+    ++steps;
+  }
+  if (b == 0 && tid == 0) sc.ctl[CTL_STEPS] = steps;
+}
+
+// The grid kernel's launch size on the current device: blocks per SM (the
+// occupancy API) x the SM count, capped at GRID_MAX_BLOCKS; cached per device.
+cudaError_t complete_grid(int* blocks, int* per_sm) {
+  constexpr int kMaxDevices = 64;
+  static int cached_blocks[kMaxDevices], cached_per_sm[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && cached_blocks[dev] > 0) {
+    *blocks = cached_blocks[dev];
+    *per_sm = cached_per_sm[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, coop = 0, n = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k_complete, GRID_THREADS, 0);
+  if (err != cudaSuccess) return err;
+  if (n < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *per_sm = n;
+  *blocks = n * sms < GRID_MAX_BLOCKS ? n * sms : GRID_MAX_BLOCKS;
+  if (dev < kMaxDevices) {
+    cached_per_sm[dev] = *per_sm;
+    cached_blocks[dev] = *blocks;
+  }
+  return cudaSuccess;
+}
+
 inline unsigned grid_for(int64_t n, int block) {
   const int64_t g = (n + block - 1) / block;
   return (unsigned)(g < 1 ? 1 : g);
@@ -1096,7 +1376,7 @@ int zt_prepare(const ZtTables* tb, const ZtState* in, const ZtState* st,
   if (out_len > n) n = out_len;
   unsigned g = grid_for(n, BLOCK);
   if (g > 4096) g = 4096;
-  k_prepare<<<g, BLOCK, 0, s>>>(*in, *st, *sc, NIE, mode, out, out_len);
+  k_prepare<<<g, BLOCK, 0, s>>>(*in, *st, *sc, NIE, mode, cfg, out, out_len);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ++*launched;
@@ -1181,6 +1461,45 @@ int zt_collect_fused(const ZtTables* tb, const ZtState* in, const ZtState* st,
   return (int)cudaGetLastError();
 }
 
+// run_to_completion in ONE cooperative launch of the grid kernel: copy-in,
+// scratch init and up to max_steps lock-steps of one shard, the loop's exit
+// on the device; ctl[CTL_STEPS] holds the steps run. A grid that cannot be
+// co-resident fails the launch (cudaErrorCooperativeLaunchTooLarge).
+int zt_complete(const ZtTables* tb, const ZtState* in, const ZtState* st,
+                const ZtScratch* sc, int max_steps, int mode, int cfg, void* stream) {
+  if (st->NS != 1 || !(mode & MODE_COMPLETION) || (mode & (MODE_EMIT | MODE_COLLECT))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int blocks = 0, per_sm = 0;
+  cudaError_t err = complete_grid(&blocks, &per_sm);
+  if (err != cudaSuccess) return (int)err;
+  ZtTables t = *tb;
+  ZtState a = *in, w = *st;
+  ZtScratch c = *sc;
+  void* args[] = {&t, &a, &w, &c, &max_steps, &mode, &cfg};
+  err = cudaLaunchCooperativeKernel((const void*)k_complete, dim3(blocks), dim3(GRID_THREADS),
+                                    args, 0, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The grid kernel's resources: registers and local memory per thread, its
+// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and the
+// co-resident grid it launches.
+int zt_complete_resources(int32_t* regs, int32_t* local_bytes, int32_t* per_sm,
+                          int32_t* blocks) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, k_complete);
+  if (err != cudaSuccess) return (int)err;
+  *regs = fa.numRegs;
+  *local_bytes = (int32_t)fa.localSizeBytes;
+  int b = 0, p = 0;
+  err = complete_grid(&b, &p);
+  *per_sm = p;
+  *blocks = b;
+  return (int)err;
+}
+
 // make_sharded_step's counter combine (after its step): writes the scalar
 // counters of the result state.
 int zt_combine(const ZtState* in, const ZtState* st, int32_t* transitions,
@@ -1216,5 +1535,9 @@ int zt_fused_max_tokens() { return FUSED_MAX_TOKENS; }
 int zt_fused_threads() { return FUSED_THREADS; }
 
 int zt_cluster_blocks() { return CLUSTER; }
+
+int zt_grid_threads() { return GRID_THREADS; }
+
+int zt_grid_max_blocks() { return GRID_MAX_BLOCKS; }
 
 }  // extern "C"

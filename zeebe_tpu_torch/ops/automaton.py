@@ -16,12 +16,13 @@ Each of ``step``, ``run_collect`` and ``run_to_completion`` is a wrapper:
   fallback: a build or launch failure raises.
 
 ``ops.kernels`` counts the launches where it enqueues them (``launch_counts``
-reads the counts): ``step`` counts every lock-step the kernels run,
-including those inside ``run_collect`` and ``run_to_completion``;
-``grid_launch_counts`` reads the CUDA grid launches behind them. ``step``
-and ``run_collect`` take the fused chunk (one launch per call) for groups
-of up to ``kernels.FUSED_MAX_TOKENS`` token slots and the chain of
-per-phase launches above that; ``run_to_completion`` takes the chain.
+reads the counts): ``step`` counts every lock-step the host enqueues,
+including those inside ``run_collect``; ``run_to_completion`` counts one per
+call (its steps are decided on the device); ``grid_launch_counts`` reads the
+CUDA grid launches behind them. ``step`` and ``run_collect`` take the fused
+chunk (one launch per call) for groups of up to ``kernels.FUSED_MAX_TOKENS``
+token slots and the chain of per-phase launches above that;
+``run_to_completion`` takes the grid kernel (one launch per call).
 
 ``make_state``, ``complete_jobs``, ``DeviceTables.from_numpy`` and
 ``state_from_numpy`` are placement and small scatters and stay plain PyTorch.

@@ -11,23 +11,32 @@ module is imported.
 
 Launch protocol: the wrapper allocates the working state (``torch.empty``)
 and one int32 scratch buffer and enqueues the steps on PyTorch's current
-stream by one of two paths, chosen by ``choose_path`` from the shard's token
-slots alone, before any launch:
+stream by one of three paths, chosen before any launch:
 
-- ``"fused"`` (shards of at most ``FUSED_MAX_TOKENS`` slots, the serving
-  geometry among them): ``zt_collect_fused``, ONE launch per chunk, a
+- ``"fused"`` (``step`` and ``run_collect`` on shards of at most
+  ``FUSED_MAX_TOKENS`` slots, the serving geometry among them, by
+  ``choose_path``): ``zt_collect_fused``, ONE launch per chunk, a
   thread-block cluster per shard that copies the state in and loops over
   the steps;
-- ``"chain"`` (larger shards, and ``run_to_completion`` always):
+- ``"chain"`` (``step`` and ``run_collect`` on larger shards):
   ``zt_prepare`` copies the state in and initializes the scratch, and
-  ``zt_steps`` enqueues ~10 grid-wide launches per lock-step.
+  ``zt_steps`` enqueues ~10 grid-wide launches per lock-step;
+- ``"grid"`` (``run_to_completion``): ``zt_complete``, ONE cooperative
+  launch per call that spans the card and runs the whole loop on the device.
 
-``run_steps`` and ``run_sharded_step`` take ``path=`` to force either one
-(the card's tests and ``chip_smoke.py`` hold both against the plain
-version); the public functions of ``ops/automaton.py`` do not. Nothing
-falls back from one path to the other: each C entry returns
-``cudaGetLastError()`` (or the launch's own error), and a non-zero code
-raises ``KernelLaunchError``.
+``run_steps``, ``run_sharded_step`` and ``run_until_quiet`` take ``path=`` to
+force another path (``run_until_quiet``: ``"grid"`` or ``"chain"``; the
+others: ``"fused"`` or ``"chain"``), so the card's tests and
+``chip_smoke.py`` hold each against the plain version; the public functions
+of ``ops/automaton.py`` do not. Nothing falls back from one path to another:
+each C entry returns ``cudaGetLastError()`` (or the launch's own error), and
+a non-zero code raises ``KernelLaunchError``.
+
+The decision kernel has two layouts (``run_decision``): ``"lanes"``, a
+context's 32-rule words spread over the lanes of a warp, and ``"serial"``,
+one thread walking a context's words in series; the library fixes the
+lanes layout's shape from the table before each launch
+(``decision_lanes_plan`` reports it).
 
 Shards: a state may hold ``num_shards`` shard blocks back to back (the
 reference's mesh layout, ``make_state(num_shards=n)``: token ``inst`` values
@@ -68,27 +77,39 @@ SCAN_TILE = 4096
 FUSED_MAX_TOKENS = 1 << 14
 FUSED_THREADS = 1024  # threads per block of the fused chunk
 CLUSTER_BLOCKS = 8  # blocks per shard cluster
-PATHS = ("fused", "chain")
-# run_to_completion enqueues this many steps between reads of the loop flag
+GRID_THREADS = 512  # threads per block of the grid kernel
+GRID_MAX_BLOCKS = 1024  # the most blocks it launches
+PATHS = ("fused", "chain", "grid")
+STEP_PATHS = ("fused", "chain")  # run_steps, run_sharded_step
+COMPLETION_PATHS = ("grid", "chain")  # run_until_quiet
+# the forced chain's run_to_completion enqueues this many steps between
+# reads of the loop flag
 COMPLETION_BLOCK_STEPS = 8
 MAX_FANOUT = 32  # take and condition masks ride 32-bit words
-# the decision kernel stages 32 rules x K atoms of 24 bytes in shared memory
+# the serial decision kernel stages 32 rules x K atoms of 24 bytes in shared
+# memory; both layouts take at most this many atoms per cell
 DECISION_MAX_ATOMS = 64
+# "serial" (k_decision) lost to "lanes" at every measured geometry and stays
+# only for the A/B in chip_smoke.py and the card's tests (ROADMAP B5)
+DECISION_KERNELS = ("lanes", "serial")
 
 # Kernel launches, counted where they are enqueued: "step" counts every
-# lock-step of an unsharded run (those inside run_collect and
-# run_to_completion too); "run_collect" and "run_to_completion" count one
-# per call. "sharded_step" counts every lock-step of a sharded run (one
+# lock-step of an unsharded run that the host enqueues (those inside
+# run_collect, and inside run_to_completion on the forced chain; the grid
+# kernel decides its steps on the device and counts under
+# "run_to_completion" alone); "run_collect" and "run_to_completion" count
+# one per call. "sharded_step" counts every lock-step of a sharded run (one
 # launch per phase over all shards; those inside sharded_collect too) and
 # "sharded_collect" one per call.
-# "decision" counts one per decision-table batch (zt_decision).
+# "decision" counts one per decision-table batch (either layout).
 LAUNCHES = {"step": 0, "run_collect": 0, "run_to_completion": 0,
             "sharded_step": 0, "sharded_collect": 0, "decision": 0}
 
 # CUDA grid launches enqueued by the automaton wrappers, by path: "fused"
 # one per fused chunk, "chain" every launch of zt_prepare and zt_steps (as
-# the library reports them), "combine" the sharded step's counter combine.
-GRID_LAUNCHES = {"fused": 0, "chain": 0, "combine": 0}
+# the library reports them), "combine" the sharded step's counter combine,
+# "grid" one per run_to_completion on the grid kernel.
+GRID_LAUNCHES = {"fused": 0, "chain": 0, "combine": 0, "grid": 0}
 
 
 class KernelBuildError(RuntimeError):
@@ -225,23 +246,34 @@ class _Lib:
         lib.zt_collect_fused.restype = ctypes.c_int
         lib.zt_fused_resources.argtypes = [count, count, count]
         lib.zt_fused_resources.restype = ctypes.c_int
+        lib.zt_complete.argtypes = [ptr(_Tables), ptr(_State), ptr(_State), ptr(_Scratch),
+                                    _I, _I, _I, _P]
+        lib.zt_complete.restype = ctypes.c_int
+        lib.zt_complete_resources.argtypes = [count, count, count, count]
+        lib.zt_complete_resources.restype = ctypes.c_int
         lib.zt_combine.argtypes = [ptr(_State), ptr(_State), _P, _P, _P, _P, _P]
         lib.zt_combine.restype = ctypes.c_int
         lib.zt_decision.argtypes = [_P] * 6 + [_I] * 4 + [_P] * 4
         lib.zt_decision.restype = ctypes.c_int
-        lib.zt_decision_max_atoms.restype = ctypes.c_int
-        lib.zt_scan_tile.restype = ctypes.c_int
-        lib.zt_ctl_stride.restype = ctypes.c_int
-        for name in ("zt_fused_max_tokens", "zt_fused_threads", "zt_cluster_blocks"):
+        lib.zt_decision_lanes.argtypes = [_P] * 6 + [_I] * 4 + [_P] * 4
+        lib.zt_decision_lanes.restype = ctypes.c_int
+        lib.zt_decision_lanes_plan.argtypes = [_I] * 3 + [count] * 6
+        lib.zt_decision_lanes_plan.restype = ctypes.c_int
+        for name in ("zt_scan_tile", "zt_ctl_stride", "zt_fused_max_tokens",
+                     "zt_fused_threads", "zt_cluster_blocks", "zt_grid_threads",
+                     "zt_grid_max_blocks", "zt_decision_max_atoms"):
             getattr(lib, name).restype = ctypes.c_int
         if (lib.zt_scan_tile(), lib.zt_ctl_stride(), lib.zt_fused_max_tokens(),
-                lib.zt_fused_threads(), lib.zt_cluster_blocks()) != (
-                SCAN_TILE, CTL_N, FUSED_MAX_TOKENS, FUSED_THREADS, CLUSTER_BLOCKS):
+                lib.zt_fused_threads(), lib.zt_cluster_blocks(), lib.zt_grid_threads(),
+                lib.zt_grid_max_blocks()) != (
+                SCAN_TILE, CTL_N, FUSED_MAX_TOKENS, FUSED_THREADS, CLUSTER_BLOCKS,
+                GRID_THREADS, GRID_MAX_BLOCKS):
             raise KernelBuildError("a constant of the library (scan tile, control "
-                                   "stride, fused chunk shape) differs from the binding")
+                                   "stride, fused chunk or grid kernel shape) differs "
+                                   "from the binding")
         if lib.zt_decision_max_atoms() != DECISION_MAX_ATOMS:
-            raise KernelBuildError("the decision kernel's atom limit differs from "
-                                   "the binding")
+            raise KernelBuildError("the decision kernels' atom limit differs from the "
+                                   "binding")
         self.lib = lib
 
 
@@ -382,14 +414,16 @@ class _Run:
 def _scratch_layout(NS: int, T: int, I: int, E: int, FO: int):
     """The scratch buffer of a geometry: each ``_SCRATCH`` array's offset
     (int32 elements, 256-byte aligned), the total, and the chain's scan tile
-    counts (free slots, requests)."""
+    counts (free slots, requests). ``block_sums`` holds the chain's tile sums
+    or the grid kernel's three totals per block, whichever is larger."""
     nb_free = -(-T // SCAN_TILE)
     nb_req = -(-(T * FO) // SCAN_TILE)
     sizes = {"ctl": CTL_N, "occ": I * E, "pend": I * E, "arrivals": I * E,
              "consumed": I * E, "head": I * E, "tpi": I, "pending": I,
              "req_target": T * FO, "req_flags": T * FO, "next": T * FO,
              "proceeds": T * FO, "place_rank": T * FO, "free_flag": T, "tok_flags": T,
-             "tok_inst": T, "tok_elem": T, "slot_of_rank": T, "block_sums": nb_free + nb_req}
+             "tok_inst": T, "tok_elem": T, "slot_of_rank": T,
+             "block_sums": max(nb_free + nb_req, 3 * GRID_MAX_BLOCKS)}
     align = 64
     offsets, total = [], 0
     for name in _SCRATCH:
@@ -490,11 +524,31 @@ def launch_fused(run: _Run, n_steps: int, mode: int, out: torch.Tensor | None,
     LAUNCHES["sharded_step" if run.sharded else "step"] += n_steps
 
 
+def launch_complete(run: _Run, max_steps: int, mode: int) -> None:
+    """Enqueue the grid kernel on a run: copy-in and up to ``max_steps``
+    lock-steps in one cooperative launch, the loop's exit on the device (no
+    synchronization); ``run.ctl[0, CTL_STEPS]`` then holds the steps run."""
+    _check(run.lib.lib.zt_complete(
+        ctypes.byref(run.tables), ctypes.byref(run.st_in), ctypes.byref(run.st),
+        ctypes.byref(run.sc), max(min(max_steps, 2**31 - 1), 0), mode, run.cfg,
+        _stream(run)), "zt_complete")
+    GRID_LAUNCHES["grid"] += 1
+
+
 def _pick(path: str | None, tokens_per_shard: int) -> str:
     if path is None:
         return choose_path(tokens_per_shard)
-    if path not in PATHS:
-        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+    if path not in STEP_PATHS:
+        raise ValueError(f"path must be one of {STEP_PATHS}, got {path!r}")
+    return path
+
+
+def _pick_completion(path: str | None) -> str:
+    """run_until_quiet's path: the grid kernel unless forced onto the chain."""
+    if path is None:
+        return "grid"
+    if path not in COMPLETION_PATHS:
+        raise ValueError(f"path must be one of {COMPLETION_PATHS}, got {path!r}")
     return path
 
 
@@ -559,21 +613,30 @@ def run_sharded_step(tables, state: dict, num_shards: int, config,
     return new_state
 
 
-def run_until_quiet(tables, state: dict, max_steps: int, config, auto_jobs: bool):
-    """run_to_completion, on the chain: steps with no events until no token
-    is live. The host reads the device loop flag once per
-    ``COMPLETION_BLOCK_STEPS`` steps; the steps in between are no-ops once
-    it drops."""
+def run_until_quiet(tables, state: dict, max_steps: int, config, auto_jobs: bool,
+                    path: str | None = None):
+    """run_to_completion: steps with no events until no token is live, or
+    ``max_steps``. Returns (state', steps as a 0-d int32 tensor on the
+    card). By default (``path=None`` or ``"grid"``) ONE launch of the grid
+    kernel runs the whole loop and the host reads nothing until it returns;
+    ``path="chain"`` forces the chain, where the host reads the device loop
+    flag once per ``COMPLETION_BLOCK_STEPS`` steps (the steps in between are
+    no-ops once it drops)."""
+    path = _pick_completion(path)
     bits = MODE_COMPLETION | (MODE_AUTO_JOBS if auto_jobs else 0)
-    run = prepare(tables, state, config, bits, None)
+    if path == "grid":
+        run = allocate(tables, state, config)
+        launch_complete(run, max_steps, bits)
+    else:
+        run = prepare(tables, state, config, bits, None)
+        done = 0
+        while done < max_steps:
+            n = min(COMPLETION_BLOCK_STEPS, max_steps - done)
+            launch_steps(run, n, bits, None, 0)
+            done += n
+            if int(run.ctl[0, CTL_GO]) == 0:
+                break
     LAUNCHES["run_to_completion"] += 1
-    done = 0
-    while done < max_steps:
-        n = min(COMPLETION_BLOCK_STEPS, max_steps - done)
-        launch_steps(run, n, bits, None, 0)
-        done += n
-        if int(run.ctl[0, CTL_GO]) == 0:
-            break
     steps = run.ctl[0, CTL_STEPS].clone()
     return run.state, steps
 
@@ -590,13 +653,43 @@ def fused_resources() -> dict:
             "cluster_blocks": CLUSTER_BLOCKS}
 
 
+def complete_resources() -> dict:
+    """The grid kernel's registers per thread, local memory per thread
+    (stack and spills), its blocks per SM and the co-resident grid it
+    launches (blocks per SM x SMs, at most ``GRID_MAX_BLOCKS``)."""
+    regs, local, per_sm, blocks = _I(0), _I(0), _I(0), _I(0)
+    _check(load().lib.zt_complete_resources(ctypes.byref(regs), ctypes.byref(local),
+                                            ctypes.byref(per_sm), ctypes.byref(blocks)),
+           "zt_complete_resources")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "blocks_per_sm": per_sm.value, "grid_blocks": blocks.value,
+            "threads": GRID_THREADS}
+
+
+def decision_lanes_plan(I: int, R: int, K: int) -> dict:
+    """The lanes layout's plan for an [I, R, K] table on the current card, as
+    ``csrc/decision.cu`` fixes it before each launch: lanes per context,
+    whether the table's atoms and a tile's keys are staged in shared memory,
+    the block's dynamic shared memory, blocks per SM and threads per block."""
+    out = [_I(0) for _ in range(6)]
+    _check(load().lib.zt_decision_lanes_plan(I, R, K, *map(ctypes.byref, out)),
+           "zt_decision_lanes_plan")
+    keys = ("lanes", "stage_atoms", "stage_keys", "smem_bytes", "blocks_per_sm", "threads")
+    return {k: v.value for k, v in zip(keys, out)}
+
+
 def run_decision(kind: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                 flags: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor):
+                 flags: torch.Tensor, keys: torch.Tensor, valid: torch.Tensor,
+                 kernel: str = "lanes"):
     """The reference's ``_evaluate_batch`` on the card: atoms ``kind``,
     ``flags`` [I, R, K] and ``lo``, ``hi`` [I, R, K, 2] (int32), context keys
     [N, I, 2] (int32) and validity [N, I] (bool) → (m [N, R] bool, selected
-    [N] int32, counts [N] int32). N = 0 launches nothing."""
+    [N] int32, counts [N] int32). ``kernel`` is ``"lanes"`` (a context's
+    rule words spread over threads) or ``"serial"`` (one thread per
+    context). N = 0 launches nothing."""
     device = keys.device
+    if kernel not in DECISION_KERNELS:
+        raise ValueError(f"kernel must be one of {DECISION_KERNELS}, got {kernel!r}")
     if kind.dim() != 3:
         raise ValueError(f"kind must be [I, R, K], got {tuple(kind.shape)}")
     I, R, K = kind.shape
@@ -617,11 +710,13 @@ def run_decision(kind: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     selected = torch.empty(N, dtype=i32, device=device)
     if N == 0:
         return m, selected, counts
-    lib = load()
+    lib = load().lib
     stream = torch.cuda.current_stream(device).cuda_stream
-    _check(lib.lib.zt_decision(kind.data_ptr(), flags.data_ptr(), lo.data_ptr(),
-                               hi.data_ptr(), keys.data_ptr(), valid.data_ptr(), N, I, R, K,
-                               m.data_ptr(), counts.data_ptr(), selected.data_ptr(), stream),
-           "zt_decision")
+    ptrs = (kind.data_ptr(), flags.data_ptr(), lo.data_ptr(), hi.data_ptr(), keys.data_ptr(),
+            valid.data_ptr())
+    outs = (m.data_ptr(), counts.data_ptr(), selected.data_ptr(), stream)
+    entry = lib.zt_decision_lanes if kernel == "lanes" else lib.zt_decision
+    code = entry(*ptrs, N, I, R, K, *outs)
+    _check(code, f"zt_decision ({kernel})")
     LAUNCHES["decision"] += 1
     return m, selected, counts
