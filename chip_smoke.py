@@ -53,7 +53,16 @@ exit) if any phase fails:
    within the deadline plus 1 s, the ladder at SUSPECT), a dispatch
    exception (a typed dispatch error), and a flat thread count over 20
    wedges;
-10. prints the kernels line (JSON), then the card line, then the result line.
+10. the engine stack and the profiler's device half: ``sample_device_memory``
+    sets both children of ``zeebe_device_memory_bytes`` for the card, one
+    ``DeviceTraceCapture`` around a ``run_group`` writes a Chrome trace that
+    must hold ``k_chunk`` kernel events, and the sequential
+    ``EngineHarness`` (no kernel) deploys one_task and the mixed set and
+    completes 2,000 instances through their job waves (every instance's
+    process ``ELEMENT_COMPLETED`` record counted), printing records/s and
+    instances/s with whether the native codec loaded and which
+    ``SortedList`` the durable store has;
+11. prints the kernels line (JSON), then the card line, then the result line.
 
 Three paths run the automaton's steps (``ops/kernels.py``): the fused
 chunk, one thread-block cluster per shard and ONE launch per chunk, for
@@ -85,7 +94,8 @@ Imports neither JAX nor the JAX package. Launch counts are zeroed right
 before each main path runs (phase 4 for step and run_collect, phase 5 for
 run_to_completion, phase 7 for sharded_step and sharded_collect, phase 8's
 ``batch_evaluate`` at the benchmark's geometry for decision) and read right
-after; comparison launches do not count. Each entry of the kernels line
+after; comparison launches, and phase 10's traced ``run_group``, do not
+count. Each entry of the kernels line
 names its path and its grid launches per call; run_to_completion's also its
 live steps and its time per live lock-step beside that step's bound, and
 decision's the serial layout's time.
@@ -108,13 +118,19 @@ import torch
 from zeebe_tpu_torch.dmn import parse_dmn_xml
 from zeebe_tpu_torch.engine import kernel_backend as kb
 from zeebe_tpu_torch.engine.device_health import SUSPECT, reset_shared_device_health
+from zeebe_tpu_torch.logstreams import LogAppendEntry
 from zeebe_tpu_torch.models.bpmn import Bpmn, transform
+from zeebe_tpu_torch.observability import profiler as P
 from zeebe_tpu_torch.ops import automaton as A
 from zeebe_tpu_torch.ops import decision as D
 from zeebe_tpu_torch.ops import kernels
 from zeebe_tpu_torch.ops.tables import compile_tables, f64_key_planes
 from zeebe_tpu_torch.parallel import mesh as M
 from zeebe_tpu_torch.parallel import mesh_runner as MR
+from zeebe_tpu_torch.protocol import ValueType, command
+from zeebe_tpu_torch.protocol.intent import JobIntent, ProcessInstanceCreationIntent
+from zeebe_tpu_torch.protocol.intent import ProcessInstanceIntent
+from zeebe_tpu_torch.testing import EngineHarness
 from zeebe_tpu_torch.testing import workloads as W
 from zeebe_tpu_torch.testing.catalog import ProcessCatalog
 from zeebe_tpu_torch.testing.chaos_device import DeviceChaosController, DeviceFaultPlan
@@ -1410,6 +1426,116 @@ def phase_fault_seam(rng, dev, card: str, tables, dt) -> dict:
         reset_shared_device_health()
 
 
+def phase_telemetry(info: dict, dev, card: str) -> dict:
+    """Phase 10a: the profiler's device half on the card. After the earlier
+    phases CUDA is up, so ``sample_device_memory()`` finds the card by
+    itself and sets both children of ``zeebe_device_memory_bytes`` for
+    ``gpu:<index>``; one ``DeviceTraceCapture`` (its default
+    ``torch.profiler`` session) around a ``run_group`` of a phase 4 group
+    writes a Chrome trace that must name the fused chunk kernel."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    label = f"gpu:{index}"
+    updated = P.sample_device_memory()
+    gauge = P._M_DEVICE_MEMORY
+    values = {c.label_values: c.value for c in gauge._children_snapshot()}
+    in_use, limit = values.get((label, "in_use")), values.get((label, "limit"))
+    if updated < 2 or not in_use or not limit:
+        raise AssertionError(f"device memory gauge not set for {label}: {updated} children, "
+                             f"{values}")
+    with tempfile.TemporaryDirectory() as tmp:
+        capture = P.DeviceTraceCapture(tmp)
+        arrays, I, T = kb.build_group_arrays(info["tables"], copy_group(info["groups"][0]),
+                                             kb.MAX_GROUP)
+        trace_dir = capture.start(seconds=120.0)
+        try:
+            run = kb.run_group(info["dt"], info["tables"].kernel_config,
+                               kb.group_state(arrays, dev), I, T)
+            torch.cuda.synchronize()
+        finally:
+            capture.cancel()
+        trace_file = trace_dir / "trace.json"
+        text = trace_file.read_text() if trace_file.exists() else ""
+    if run.steps is None:
+        raise AssertionError(f"the traced run_group failed: {run.fail_reason}")
+    events = json.loads(text)["traceEvents"] if text else []
+    chunks = [e for e in events if e.get("cat") == "kernel" and "k_chunk" in e.get("name", "")]
+    if not chunks:
+        raise AssertionError(f"the device trace ({len(text)} bytes, {len(events)} events) "
+                             "holds no k_chunk kernel")
+    log(f"phase10 telemetry [{card}]: zeebe_device_memory_bytes{{device={label}}} in_use "
+        f"{in_use:.0f} B, limit {limit:.0f} B ({updated} children); device trace "
+        f"{len(text)} bytes around one run_group ({len(run.steps)} steps): {len(events)} "
+        f"events, {len(chunks)} kernel events of {chunks[0]['name'][:60]!r}, "
+        f"{sum(e.get('dur', 0) for e in chunks):.1f} us on the card")
+    return {"in_use": in_use, "limit": limit, "trace_bytes": len(text)}
+
+
+def phase_engine(card: str, n_instances: int = 2000) -> dict:
+    """Phase 10b: the port's engine stack, sequential, on the card's host.
+    ``EngineHarness`` deploys one_task and the 8-definition mixed set,
+    ``n_instances`` creations go through its log round robin over the 9
+    processes, then every job is activated and completed in waves until
+    none is left. Every instance must complete: the ``ELEMENT_COMPLETED``
+    records of the process element equal the instances created, and the
+    harness finds every instance done. Prints records/s and instances/s
+    over the wall from deployment to the last completion, with whether the
+    native codec loaded and which ``SortedList`` the durable store has."""
+    from zeebe_tpu_torch import native
+    from zeebe_tpu_torch.state import durable
+
+    models = [W.one_task()] + W.mixed_definitions()
+    pids = [m.process_id for m in models]
+    with tempfile.TemporaryDirectory() as tmp:
+        h = EngineHarness(tmp)
+        try:
+            t0 = time.perf_counter()
+            h.deploy(*models)
+            for i in range(n_instances):
+                h.stream.writer.try_write([LogAppendEntry(command(
+                    ValueType.PROCESS_INSTANCE_CREATION, ProcessInstanceCreationIntent.CREATE,
+                    {"bpmnProcessId": pids[i % len(pids)], "version": -1,
+                     "variables": {"x": i % 30}}))])
+            h.pump()
+            job_types = sorted({r.record.value["type"] for r in
+                                h.exporter.job_records().with_intent(JobIntent.CREATED)})
+            waves = completed_jobs = 0
+            while True:
+                jobs = [j for jt in job_types for j in h.activate_jobs(jt, max_jobs=1000)]
+                if not jobs:
+                    break
+                waves += 1
+                for job in jobs:
+                    h.stream.writer.try_write([LogAppendEntry(command(
+                        ValueType.JOB, JobIntent.COMPLETE, {"variables": {}}, key=job["key"]))])
+                h.pump()
+                completed_jobs += len(jobs)
+                if waves > 64:
+                    raise AssertionError("the job waves did not drain")
+            wall = time.perf_counter() - t0
+            created = [r.record.value["processInstanceKey"] for r in
+                       h.exporter.all().with_value_type(ValueType.PROCESS_INSTANCE_CREATION)
+                       .with_intent(ProcessInstanceCreationIntent.CREATED)]
+            done = (h.exporter.process_instance_records()
+                    .with_intent(ProcessInstanceIntent.ELEMENT_COMPLETED)
+                    .with_value(bpmnElementType="PROCESS").count())
+            records = h.stream.last_position
+            if len(created) != n_instances or done != n_instances:
+                raise AssertionError(f"engine: {len(created)} created, {done} completed of "
+                                     f"{n_instances}")
+            if not all(h.is_instance_done(k) for k in created):
+                raise AssertionError("engine: an instance is still live after the waves")
+        finally:
+            h.close()
+    codec = native.load_codec() is not None
+    log(f"phase10 engine stack [{card}]: sequential EngineHarness, one_task + mixed set, "
+        f"{n_instances} instances ({done} completed), {completed_jobs} jobs in {waves} waves, "
+        f"{records} records in {wall:.3f} s: {records / wall:.1f} records/s, "
+        f"{n_instances / wall:.1f} instances/s; native codec "
+        f"{'loaded' if codec else 'not loaded'}, SortedList from {durable.SortedList.__module__}")
+    return {"records_per_s": records / wall, "instances_per_s": n_instances / wall,
+            "records": records, "native": codec}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1457,6 +1583,8 @@ def main() -> int:
     worst.update(sharded["worst"])
     decision = phase_decision(rng, dev, card)
     seam = phase_fault_seam(rng, dev, card, slice_info["tables"], slice_info["dt"])
+    phase_telemetry(slice_info, dev, card)
+    phase_engine(card)
     timing["decision"] = {**decision["bench"]}
     worst["decision"] = decision["err"]
     log(f"sharded timings [{card}] at {N_SHARDS} shards of the serving geometry: "

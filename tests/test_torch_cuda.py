@@ -12,6 +12,8 @@ rows, states and events must be byte-equal: the tolerance is zero.
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -815,3 +817,98 @@ def test_wedge_on_card_is_typed_and_the_next_group_runs(cuda, clean_plane):
     kb.install_device_chaos(None)
     again = kb.run_group(dt, tables.kernel_config, state, I, T, defense=defense)
     assert again.fail_reason is None
+
+
+# ---------------------------------------------------------------------------
+# the profiler's device half on the card
+
+
+def test_sample_device_memory_after_run_group(cuda):
+    from zeebe_tpu_torch.observability import profiler as P
+
+    tables, dt, state, I, T = _serving_group(cuda, 300, 3)
+    assert kb.run_group(dt, tables.kernel_config, state, I, T).fail_reason is None
+    torch.cuda.synchronize()
+    index = torch.cuda.current_device()
+    assert P.sample_device_memory([torch.device("cuda", index)]) == 2
+    values = {c.label_values: c.value for c in P._M_DEVICE_MEMORY._children_snapshot()}
+    in_use, limit = values[(f"gpu:{index}", "in_use")], values[(f"gpu:{index}", "limit")]
+    assert 0 < in_use < limit == torch.cuda.mem_get_info(index)[1]
+    # CUDA is up: the default device list finds the card by itself
+    assert P.sample_device_memory() >= 2
+
+
+def test_trace_capture_names_the_fused_chunk(cuda, tmp_path):
+    from zeebe_tpu_torch.observability import profiler as P
+
+    tables, dt, state, I, T = _serving_group(cuda, 300, 4)
+    kb.run_group(dt, tables.kernel_config, state, I, T)  # warm-up
+    torch.cuda.synchronize()
+    capture = P.DeviceTraceCapture(tmp_path)
+    trace_dir = capture.start(seconds=60.0)
+    try:
+        run = kb.run_group(dt, tables.kernel_config, state, I, T)
+        torch.cuda.synchronize()
+    finally:
+        capture.cancel()
+    assert run.fail_reason is None and capture.captures_taken == 1
+    events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel" and "k_chunk" in e.get("name", "") for e in events)
+
+
+# ---------------------------------------------------------------------------
+# launches go to the tensors' card, whichever card is current
+
+
+@pytest.fixture
+def second_card(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the state on cuda:1 while cuda:0 is current")
+    torch.cuda.set_device(0)
+    yield torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+
+
+def test_launches_follow_the_tensors_card(second_card):
+    """State and tables on cuda:1 while cuda:0 is current: run_collect (the
+    fused chunk), run_group (its row-ready events), run_to_completion (the
+    grid kernel and its occupancy query), the decision kernel (the lanes
+    occupancy) and a 2-shard mesh (the sharded chunk and the runner's row
+    fetch) all run on cuda:1, byte-equal to the plain version."""
+    card = second_card
+    assert torch.cuda.current_device() == 0
+    tables, dt, state = _setup("mixed", 2048, None, seed=5, device=card)
+    config = tables.kernel_config
+    ks, krows = A.run_collect(dt, state, n_steps=8, config=config)
+    ps, prows = A.run_collect_plain(dt, state, n_steps=8, config=config)
+    assert krows.device == card and torch.equal(krows.cpu(), prows.cpu())
+    _assert_state_equal(ks, ps)
+    ks, ksteps = A.run_to_completion(dt, state, max_steps=100, config=config)
+    ps, psteps = A.run_to_completion_plain(dt, state, max_steps=100, config=config)
+    _assert_state_equal(ks, ps)
+    assert int(ksteps) == int(psteps)
+
+    stables, sdt, sstate, I, T = _serving_group(card, 300, 6)
+    out = kb.run_group(sdt, stables.kernel_config, sstate, I, T)
+    want = kb.run_group(sdt, stables.kernel_config, sstate, I, T, collect=A.run_collect_plain)
+    assert out.fail_reason is None and len(out.steps) == len(want.steps)
+    for a, b in zip(out.steps, want.steps):
+        assert all(np.array_equal(a[k], b[k]) for k in a)
+    _assert_state_equal(out.state, want.state)
+
+    arrays = [torch.from_numpy(np.array(a)).to(card) for a in _atoms(9, 4096, 4, 512, 4)]
+    for got, exp in zip(D.evaluate_batch(*arrays), D._evaluate_batch(*arrays)):
+        assert got.device == card and torch.equal(got, exp)
+
+    registry = _shard_registry()
+    results = {}
+    for dev in (card, torch.device("cpu")):
+        runner = MR.MeshKernelRunner(mesh=M.make_mesh(2, dev))
+        results[dev.type] = runner.run_groups(
+            _shard_requests(registry, registry.device_tables_for(dev), 2))
+    for g, c in zip(results["cuda"], results["cpu"]):
+        assert (g.overflow, g.quiesced, len(g.steps)) == (c.overflow, c.quiesced, len(c.steps))
+        for a, b in zip(g.steps, c.steps):
+            assert all(np.array_equal(a[k], b[k]) for k in a)
+        assert all(np.array_equal(g.state[k], c.state[k]) for k in g.state)
+    assert torch.cuda.current_device() == 0

@@ -205,3 +205,71 @@ def test_ptxas_report_picks_the_kernel(monkeypatch, tmp_path):
     assert lines[2].startswith("352 bytes stack frame")
     assert lines[3].startswith("ptxas info    : Used 64 registers")
     assert kernels.ptxas_report("k_missing") == []
+
+
+# ---------------------------------------------------------------------------
+# every C entry runs with the run's card current
+
+
+class _Pinned:
+    """Stands in for ``torch.cuda.device``, ``torch.cuda.current_stream``
+    and the library: each entry records the device current when it was
+    called and the device of the stream it was handed."""
+
+    def __init__(self) -> None:
+        self.current = [torch.device("cuda", 0)]
+        self.calls: list[tuple[str, torch.device, torch.device]] = []
+        self.streams: dict[int, torch.device] = {}
+
+    def device(self, dev):
+        pinned = self
+
+        class _Ctx:
+            def __enter__(self):
+                pinned.current.append(torch.device(dev))
+
+            def __exit__(self, *exc):
+                pinned.current.pop()
+        return _Ctx()
+
+    def current_stream(self, dev):
+        handle = 1000 + len(self.streams)
+        self.streams[handle] = torch.device(dev)
+        return type("Stream", (), {"cuda_stream": handle})()
+
+    def __getattr__(self, name):
+        if not name.startswith("zt_"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            stream = next(self.streams[a] for a in args if a in self.streams)
+            self.calls.append((name, self.current[-1], stream))
+            return 0
+        return entry
+
+
+def test_every_c_entry_runs_on_the_runs_card(monkeypatch):
+    pinned = _Pinned()
+    monkeypatch.setattr(torch.cuda, "device", pinned.device)
+    monkeypatch.setattr(torch.cuda, "current_stream", pinned.current_stream)
+    monkeypatch.setattr(kernels, "LAUNCHES", dict(kernels.LAUNCHES))
+    monkeypatch.setattr(kernels, "GRID_LAUNCHES", dict(kernels.GRID_LAUNCHES))
+    card = torch.device("cuda", 1)
+    state = {name: torch.zeros((), dtype=torch.int32) for name in kernels._COUNTERS}
+    run = kernels._Run(
+        lib=type("Lib", (), {"lib": pinned})(), tables=kernels._Tables(),
+        st=kernels._State(), sc=kernels._Scratch(), state=dict(state),
+        scratch=type("Scratch", (), {"device": card})(), ctl=None, nb_free=1, nb_req=1,
+        cfg=0, sharded=True, st_in=kernels._State(), keep=())
+    kernels.launch_prepare(run, 0, None)
+    kernels.launch_steps(run, 2, 0, None, 0)
+    kernels.launch_fused(run, 2, 0, None, 0)
+    kernels.launch_complete(run, 5, 0)
+    monkeypatch.setattr(kernels, "_enqueue", lambda *args: run)
+    kernels.run_sharded_step(None, state, 2, None, auto_jobs=False)
+    assert [c[0] for c in pinned.calls] == ["zt_prepare", "zt_steps", "zt_collect_fused",
+                                            "zt_complete", "zt_combine"]
+    # launched with the run's card current, on that card's stream, and the
+    # caller's current card restored
+    assert all(cur == card and stream == card for _, cur, stream in pinned.calls)
+    assert pinned.current == [torch.device("cuda", 0)]

@@ -255,16 +255,41 @@ def _forbidden(module: str) -> bool:
     return top in ("jax", "jaxlib", "zeebe_tpu")
 
 
+def _import_offenders(tree: ast.AST) -> list[str]:
+    """Every module an ``import`` or ``from ... import`` in the tree names
+    that belongs to JAX or to the reference package; ``from zeebe_tpu import
+    native`` names ``zeebe_tpu.native``."""
+    out = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            if _forbidden(node.module):
+                out += [f"{node.module}.{a.name}" for a in node.names]
+    return out
+
+
+@pytest.mark.parametrize("source,caught", [
+    ("import jax", ["jax"]),
+    ("import jax.numpy as jnp", ["jax.numpy"]),
+    ("from jaxlib import xla_client", ["jaxlib.xla_client"]),
+    ("def f():\n    from jax import profiler", ["jax.profiler"]),
+    ("from zeebe_tpu import native as _native", ["zeebe_tpu.native"]),
+    ("from zeebe_tpu import native, protocol", ["zeebe_tpu.native", "zeebe_tpu.protocol"]),
+    ("import zeebe_tpu.protocol", ["zeebe_tpu.protocol"]),
+    ("from zeebe_tpu.state.db import ZbDb", ["zeebe_tpu.state.db.ZbDb"]),
+    ("from zeebe_tpu_torch import native", []),
+    ("from . import native", []),
+])
+def test_import_check_names_what_it_rejects(source, caught):
+    assert _import_offenders(ast.parse(source)) == caught
+
+
 def test_port_imports_no_jax_and_no_reference_package():
     offenders = []
     for path in sorted((REPO / "zeebe_tpu_torch").rglob("*.py")):
-        for node in ast.walk(ast.parse(path.read_text(), str(path))):
-            names = []
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
-                names = [node.module]
-            offenders += [f"{path.relative_to(REPO)}: {n}" for n in names if _forbidden(n)]
+        tree = ast.parse(path.read_text(), str(path))
+        offenders += [f"{path.relative_to(REPO)}: {n}" for n in _import_offenders(tree)]
     assert offenders == []
 
 

@@ -175,9 +175,11 @@ COPIED = ("feel/temporal.py", "feel/feel.py", "feel/__init__.py", "models/bpmn/m
 
 def as_copied(ref: str) -> str:
     """The reference's text as the port copies it: the package name in its
-    imports renamed, and the reference's history tags ("(ISSUE n)", "PR n")
-    left out of comments and docstrings."""
+    imports renamed (``zeebe_tpu.`` and ``from zeebe_tpu import``), and the
+    reference's history tags (an issue or pull request number) left out of
+    comments and docstrings."""
     text = ref.replace("zeebe_tpu.", "zeebe_tpu_torch.")
+    text = text.replace("from zeebe_tpu import ", "from zeebe_tpu_torch import ")
     return re.sub(r" ?(?:by )?\(?\b(?:ISSUE|PR) \d+(?: satellite)?\)?", "", text)
 
 

@@ -1,13 +1,32 @@
-"""zeebe_tpu_torch — the PyTorch and CUDA port of zeebe_tpu's device path.
+"""zeebe_tpu_torch — the PyTorch and CUDA port of zeebe_tpu.
 
 The package mirrors ``zeebe_tpu``'s layout so each counterpart sits under the
 same path, and imports neither JAX nor anything of ``zeebe_tpu``: the host
-modules the device path needs (BPMN model, FEEL parser, deploy-time table
-compiler, element enums) are kept as copies here.
+modules it needs (protocol, engine stack, BPMN model, FEEL parser,
+deploy-time table compiler) are kept as copies here
+(``testing/copies.py`` writes the engine stack's).
 
-Layer map:
+Layer map, the sequential engine stack first (copies unless noted):
 
-- ``protocol.enums``      BPMN element/event types (the opcode table keys)
+- ``testing``             ``EngineHarness``, ``MultiPartitionHarness``,
+                          ``ControlledClock`` (rewritten: the kernel backend
+                          is refused until its admission and
+                          materialization are ported)
+- ``stream``              the stream processor (processing and replay)
+- ``engine``              ``Engine``, state, appliers, BPMN processors,
+                          timers, messages, signals, distribution
+- ``logstreams``, ``journal``  the record log on a segmented journal
+- ``state``               the transactional key-value state (in memory and
+                          durable), snapshots, tiering
+- ``exporters``, ``backup``, ``parallel.partitioning``, ``utils``
+- ``observability``       tracing, metrics history, flight recorder,
+                          alerts; ``profiler``'s device half on
+                          ``torch.cuda`` (rewritten)
+- ``protocol``            records, intents, keys, msgpack, enums
+- ``native``              the C record codec, built with gcc at first use
+
+The device path:
+
 - ``feel``                FEEL-lite parser (condition ASTs for the compiler)
 - ``models.bpmn``         fluent builder, XML I/O, deploy-time transformer
 - ``ops.tables``          deploy-time tables: opcodes, flows, condition programs

@@ -1058,10 +1058,12 @@ def _dispatch(dt: DeviceTables, state: dict, chunk: int, config, collect) -> _Ch
     state, packed = collect(dt, state, n_steps=chunk, config=config)
     if not packed.is_cuda:
         return _Chunk(state, packed, None)
-    rows = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-    rows.copy_(packed, non_blocking=True)
-    ready = torch.cuda.Event()
-    ready.record()
+    # the copy and its event on the rows' card, whichever card is current
+    with torch.cuda.device(packed.device):
+        rows = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        rows.copy_(packed, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(packed.device))
     return _Chunk(state, rows, ready)
 
 

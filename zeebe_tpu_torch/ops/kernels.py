@@ -472,10 +472,19 @@ def _stream(run: _Run) -> int:
     return torch.cuda.current_stream(run.scratch.device).cuda_stream
 
 
-def _chain_call(fn, *args) -> None:
-    """One chain entry; counts the grid launches it enqueued."""
+def _on_card(run: _Run):
+    """The run's card as the current device: a C entry launches on the
+    current device, and sizes its grid from it, so every entry runs inside
+    this context, whichever card is current outside it."""
+    return torch.cuda.device(run.scratch.device)
+
+
+def _chain_call(run: _Run, fn, *args) -> None:
+    """One chain entry on the run's card; counts the grid launches it
+    enqueued."""
     launched = _I(0)
-    code = fn(*args, ctypes.byref(launched))
+    with _on_card(run):
+        code = fn(*args, _stream(run), ctypes.byref(launched))
     GRID_LAUNCHES["chain"] += launched.value
     _check(code, fn.__name__)
 
@@ -486,9 +495,9 @@ def launch_prepare(run: _Run, mode: int, out: torch.Tensor | None) -> None:
     occupancy."""
     out_ptr = out.data_ptr() if out is not None else None
     out_len = out.numel() if out is not None else 0
-    _chain_call(run.lib.lib.zt_prepare, ctypes.byref(run.tables), ctypes.byref(run.st_in),
-                ctypes.byref(run.st), ctypes.byref(run.sc), mode, run.cfg, out_ptr, out_len,
-                _stream(run))
+    _chain_call(run, run.lib.lib.zt_prepare, ctypes.byref(run.tables),
+                ctypes.byref(run.st_in), ctypes.byref(run.st), ctypes.byref(run.sc), mode,
+                run.cfg, out_ptr, out_len)
 
 
 def prepare(tables, state: dict, config, mode: int, out: torch.Tensor | None,
@@ -504,9 +513,9 @@ def launch_steps(run: _Run, n_steps: int, mode: int, out: torch.Tensor | None,
     """Enqueue ``n_steps`` lock-steps of the chain on a prepared run (no
     synchronization)."""
     out_ptr = out.data_ptr() if out is not None else None
-    _chain_call(run.lib.lib.zt_steps, ctypes.byref(run.tables), ctypes.byref(run.st),
+    _chain_call(run, run.lib.lib.zt_steps, ctypes.byref(run.tables), ctypes.byref(run.st),
                 ctypes.byref(run.sc), n_steps, mode, run.cfg, out_ptr, 0, row_len,
-                run.nb_free, run.nb_req, _stream(run))
+                run.nb_free, run.nb_req)
     LAUNCHES["sharded_step" if run.sharded else "step"] += n_steps
 
 
@@ -516,10 +525,11 @@ def launch_fused(run: _Run, n_steps: int, mode: int, out: torch.Tensor | None,
     of every shard in one cluster launch (no synchronization). The copy-in
     makes a run reusable: each launch starts from the caller's state."""
     out_ptr = out.data_ptr() if out is not None else None
-    _check(run.lib.lib.zt_collect_fused(
-        ctypes.byref(run.tables), ctypes.byref(run.st_in), ctypes.byref(run.st),
-        ctypes.byref(run.sc), n_steps, mode, run.cfg, out_ptr, row_len, _stream(run)),
-        "zt_collect_fused")
+    with _on_card(run):
+        code = run.lib.lib.zt_collect_fused(
+            ctypes.byref(run.tables), ctypes.byref(run.st_in), ctypes.byref(run.st),
+            ctypes.byref(run.sc), n_steps, mode, run.cfg, out_ptr, row_len, _stream(run))
+    _check(code, "zt_collect_fused")
     GRID_LAUNCHES["fused"] += 1
     LAUNCHES["sharded_step" if run.sharded else "step"] += n_steps
 
@@ -528,10 +538,12 @@ def launch_complete(run: _Run, max_steps: int, mode: int) -> None:
     """Enqueue the grid kernel on a run: copy-in and up to ``max_steps``
     lock-steps in one cooperative launch, the loop's exit on the device (no
     synchronization); ``run.ctl[0, CTL_STEPS]`` then holds the steps run."""
-    _check(run.lib.lib.zt_complete(
-        ctypes.byref(run.tables), ctypes.byref(run.st_in), ctypes.byref(run.st),
-        ctypes.byref(run.sc), max(min(max_steps, 2**31 - 1), 0), mode, run.cfg,
-        _stream(run)), "zt_complete")
+    with _on_card(run):
+        code = run.lib.lib.zt_complete(
+            ctypes.byref(run.tables), ctypes.byref(run.st_in), ctypes.byref(run.st),
+            ctypes.byref(run.sc), max(min(max_steps, 2**31 - 1), 0), mode, run.cfg,
+            _stream(run))
+    _check(code, "zt_complete")
     GRID_LAUNCHES["grid"] += 1
 
 
@@ -606,9 +618,11 @@ def run_sharded_step(tables, state: dict, num_shards: int, config,
         for name in _COUNTERS:
             new_state[name] = torch.empty((), dtype=state[name].dtype,
                                           device=state[name].device)
-        _check(run.lib.lib.zt_combine(
-            ctypes.byref(run.st_in), ctypes.byref(run.st),
-            *(new_state[name].data_ptr() for name in _COUNTERS), _stream(run)), "zt_combine")
+        with _on_card(run):
+            code = run.lib.lib.zt_combine(
+                ctypes.byref(run.st_in), ctypes.byref(run.st),
+                *(new_state[name].data_ptr() for name in _COUNTERS), _stream(run))
+        _check(code, "zt_combine")
         GRID_LAUNCHES["combine"] += 1
     return new_state
 
@@ -716,7 +730,10 @@ def run_decision(kind: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
             valid.data_ptr())
     outs = (m.data_ptr(), counts.data_ptr(), selected.data_ptr(), stream)
     entry = lib.zt_decision_lanes if kernel == "lanes" else lib.zt_decision
-    code = entry(*ptrs, N, I, R, K, *outs)
+    # a C entry launches on the current device, and the lanes layout sizes
+    # its grid from that device's occupancy: make it the keys' card
+    with torch.cuda.device(device):
+        code = entry(*ptrs, N, I, R, K, *outs)
     _check(code, f"zt_decision ({kernel})")
     LAUNCHES["decision"] += 1
     return m, selected, counts

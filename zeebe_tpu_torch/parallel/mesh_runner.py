@@ -321,10 +321,12 @@ def _fetch(packed: torch.Tensor) -> np.ndarray:
     on that copy alone."""
     if not packed.is_cuda:
         return packed.numpy()
-    rows = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-    rows.copy_(packed, non_blocking=True)
-    ready = torch.cuda.Event()
-    ready.record()
+    # the copy and its event on the rows' card, whichever card is current
+    with torch.cuda.device(packed.device):
+        rows = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        rows.copy_(packed, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(packed.device))
     ready.synchronize()
     return rows.numpy()
 

@@ -1,0 +1,92 @@
+"""Copy the engine stack's host modules from the reference package.
+
+    python zeebe_tpu_torch/testing/copies.py [--check]
+
+The port keeps its own copies of the reference's JAX-free host modules
+instead of importing them. A copy is the reference's text with the package
+name in its imports renamed (``zeebe_tpu.`` and ``from zeebe_tpu import``)
+and the reference's history tags (an issue or pull request number) left out
+of comments and docstrings. This script reads the reference files as text (it imports
+nothing of the reference) and writes each copy under ``zeebe_tpu_torch/``;
+``--check`` only lists the copies that differ and exits 1 if any does.
+``tests/test_torch_engine_copies.py`` holds every copy to the same rule.
+Run it as a file, not with ``-m``: it then imports nothing of the port
+either, so it can repair a copy that no longer imports.
+
+``ENGINE_STACK`` is bottom-up: protocol, the native codec, utilities,
+state, journal and log stream, observability, exporters, backup,
+partitioning, the engine, the stream processor. The harness
+(``testing/__init__.py``) and the profiler's device half
+(``observability/profiler.py``) are rewritten for the port, not copied.
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[2]
+REFERENCE = REPO / "zeebe_tpu"
+PORT = REPO / "zeebe_tpu_torch"
+
+ENGINE_STACK = (
+    "protocol/enums.py", "protocol/intent.py", "protocol/keys.py", "protocol/msgpack.py",
+    "protocol/record.py", "protocol/__init__.py",
+    "native/__init__.py", "native/codec.c",
+    "utils/time_util.py", "utils/storage_io.py", "utils/health.py", "utils/zlogging.py",
+    "utils/__init__.py",
+    "state/db.py", "state/durable.py", "state/request_dedupe.py", "state/snapshot.py",
+    "state/tiering.py", "state/__init__.py",
+    "journal/journal.py", "journal/__init__.py",
+    "logstreams/log_stream.py", "logstreams/__init__.py",
+    "observability/span.py", "observability/tracer.py", "observability/timeseries.py",
+    "observability/flight_recorder.py", "observability/lineage.py",
+    "observability/critical_path.py", "testing/evidence.py", "observability/alerts.py",
+    "observability/auditor.py", "observability/__init__.py",
+    "exporters/api.py", "exporters/recording.py", "exporters/director.py",
+    "exporters/elasticsearch.py", "exporters/__init__.py",
+    "backup/checkpoint.py", "backup/store.py", "backup/service.py", "backup/s3.py",
+    "backup/gcs.py", "backup/__init__.py",
+    "parallel/partitioning.py",
+    "engine/writers.py", "engine/appliers.py", "engine/engine_state.py",
+    "engine/timer_wheel.py", "engine/message_timer.py", "engine/signal.py",
+    "engine/user_task.py", "engine/decision.py", "engine/distribution.py",
+    "engine/modification.py", "engine/burst_templates.py", "engine/bpmn.py",
+    "engine/processors.py", "engine/engine.py", "engine/__init__.py",
+    "stream/api.py", "stream/processor.py", "stream/__init__.py",
+)
+
+_TAG = re.compile(r" ?(?:by )?\(?\b(?:ISSUE|PR) \d+(?: satellite)?\)?")
+
+
+def as_copied(text: str) -> str:
+    """The reference's text as the port copies it."""
+    text = text.replace("zeebe_tpu.", "zeebe_tpu_torch.")
+    text = text.replace("from zeebe_tpu import ", "from zeebe_tpu_torch import ")
+    return _TAG.sub("", text)
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--check", action="store_true",
+                        help="list the copies that differ; write nothing")
+    args = parser.parse_args(argv)
+    stale = []
+    for rel in ENGINE_STACK:
+        want = as_copied((REFERENCE / rel).read_text())
+        dst = PORT / rel
+        if dst.exists() and dst.read_text() == want:
+            continue
+        stale.append(rel)
+        if not args.check:
+            dst.parent.mkdir(parents=True, exist_ok=True)
+            dst.write_text(want)
+    for rel in stale:
+        print(("differs: " if args.check else "wrote: ") + rel)
+    return 1 if args.check and stale else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
