@@ -48,9 +48,10 @@ exit) if any phase fails:
 9. the device-fault seam on the card: a clean serving group (I = 2048, mixed
    set) driven through every wave at shadow rate 1.0 (the CPU oracle matches,
    nothing quarantined); at I = 256, injected corruption (every injection
-   caught: by the shadow, which declines the group as device-shadow-
-   mismatch, or contained as a typed decline), a stall past a 200 ms watchdog deadline (a typed wedge
-   within the deadline plus 1 s, the ladder at SUSPECT), a dispatch
+   caught: by the shadow, which quarantines the device's rows and returns
+   the host oracle's steps and state, equal to a clean run's, or contained
+   as a typed decline), a stall past a 200 ms watchdog deadline (a typed
+   wedge within the deadline plus 1 s, the ladder at SUSPECT), a dispatch
    exception (a typed dispatch error), and a flat thread count over 20
    wedges;
 10. the engine stack and the profiler's device half: ``sample_device_memory``
@@ -62,7 +63,17 @@ exit) if any phase fails:
     process ``ELEMENT_COMPLETED`` record counted), printing records/s and
     instances/s with whether the native codec loaded and which
     ``SortedList`` the durable store has;
-11. prints the kernels line (JSON), then the card line, then the result line.
+11. the serving write path: phase 10's commands, from the same clock start,
+    through the port's StreamProcessor with the partition's
+    ``KernelBackend(engine, max_group=2048, chunk_steps=8)`` on the card
+    (admission, each group on ``k_chunk`` at I = 2048, T = 8192,
+    materialization); the record log byte-identical to phase 10's, every
+    instance complete, each of the nine definitions 100% on the kernel
+    path, no group declined, nothing shadow-quarantined, ``k_chunk``
+    launched; records/s and instances/s beside phase 10's, groups, commands
+    on the kernel, template hits and misses, chunk launches and the compile
+    seam's first-dispatch seconds;
+12. prints the kernels line (JSON), then the card line, then the result line.
 
 Three paths run the automaton's steps (``ops/kernels.py``): the fused
 chunk, one thread-block cluster per shard and ONE launch per chunk, for
@@ -93,12 +104,14 @@ launch, phase 5 that run_to_completion was one grid launch. Beside them:
 Imports neither JAX nor the JAX package. Launch counts are zeroed right
 before each main path runs (phase 4 for step and run_collect, phase 5 for
 run_to_completion, phase 7 for sharded_step and sharded_collect, phase 8's
-``batch_evaluate`` at the benchmark's geometry for decision) and read right
-after; comparison launches, and phase 10's traced ``run_group``, do not
-count. Each entry of the kernels line
-names its path and its grid launches per call; run_to_completion's also its
-live steps and its time per live lock-step beside that step's bound, and
-decision's the serial layout's time.
+``batch_evaluate`` at the benchmark's geometry for decision, phase 11 for
+run_collect on the serving write path) and read right after; comparison
+launches, and phase 10's traced ``run_group``, do not count. Each entry of
+the kernels line names its path and its grid launches per call;
+run_collect's also its launches on the serving write path
+(``engine_launches``), run_to_completion's its live steps and its time per
+live lock-step beside that step's bound, and decision's the serial
+layout's time.
 """
 
 from __future__ import annotations
@@ -1313,6 +1326,12 @@ def phase_decision(rng, dev, card: str) -> dict:
     return info
 
 
+def same_steps(a: list[dict], b: list[dict]) -> bool:
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x)
+        for x, y in zip(a, b))
+
+
 def seam_group(tables, n: int, rng, dev):
     """A fresh mixed-set serving group of n instances on the card."""
     insts = make_group(tables, n, rng)
@@ -1360,12 +1379,19 @@ def phase_fault_seam(rng, dev, card: str, tables, dt) -> dict:
             for _ in range(8):
                 _, state, I, T = seam_group(tables, 256, rng, dev)
                 kb.install_device_chaos(None)
-                if kb.run_group(dt, config, state, I, T).fail_reason is not None:
+                clean = kb.run_group(dt, config, state, I, T)
+                if clean.fail_reason is not None:
                     raise AssertionError("the clean run of a corruption group failed")
                 kb.install_device_chaos(controller)
                 out = kb.run_group(dt, config, state, I, T, defense=defense)
                 kb.install_device_chaos(None)
-                if out.fail_reason == "device-shadow-mismatch" and out.state is state:
+                if out.fail_reason is None:
+                    # quarantined: the host oracle's steps and state, which
+                    # must be the clean run's
+                    if not same_steps(out.steps, clean.steps) or max_abs_err(
+                            out.state, clean.state):
+                        raise AssertionError("a quarantined group's oracle result differs "
+                                             "from the clean run")
                     how.append("shadow")
                 elif out.fail_reason in ("no-quiesce", "token-overflow"):
                     how.append("contained")
@@ -1381,8 +1407,8 @@ def phase_fault_seam(rng, dev, card: str, tables, dt) -> dict:
             raise AssertionError(f"{defense.shadow_quarantined} quarantined, "
                                  f"{how.count('shadow')} shadow declines")
         log(f"phase9 corrupt [{card}]: I=256, 8 groups, {len(injected)} injections of 3 "
-            f"flips, all caught ({how.count('shadow')} groups by the shadow, declined as "
-            f"device-shadow-mismatch, {how.count('contained')} contained as typed "
+            f"flips, all caught ({how.count('shadow')} groups by the shadow, the host oracle's "
+            f"result returned in their place, {how.count('contained')} contained as typed "
             f"declines)")
 
         # a stall past a 200 ms deadline, 20 wedges, a dispatch exception
@@ -1470,8 +1496,23 @@ def phase_telemetry(info: dict, dev, card: str) -> dict:
     return {"in_use": in_use, "limit": limit, "trace_bytes": len(text)}
 
 
-def phase_engine(card: str, n_instances: int = 2000) -> dict:
-    """Phase 10b: the port's engine stack, sequential, on the card's host.
+def serving_harness(directory) -> EngineHarness:
+    """The harness with the partition's kernel backend on the card:
+    ``KernelBackend(engine, max_group=2048, chunk_steps=8)``, as
+    ``zeebe_tpu/broker/partition.py:406-410`` builds it, in place of the
+    harness's test geometry (``max_group=64``, templates audited)."""
+    h = EngineHarness(directory)
+    backend = kb.KernelBackend(h.engine, max_group=2048, chunk_steps=8)
+    backend.max_commands_in_batch = h.processor.max_commands_in_batch
+    h.processor.kernel_backend = backend
+    h.kernel_backend = backend
+    return h
+
+
+def phase_engine(card: str, n_instances: int = 2000, kernel: bool = False) -> dict:
+    """Phase 10b (``kernel=False``): the port's engine stack, sequential, on
+    the card's host; phase 11 (``kernel=True``): the same commands through
+    the serving write path, the partition's kernel backend on the card.
     ``EngineHarness`` deploys one_task and the 8-definition mixed set,
     ``n_instances`` creations go through its log round robin over the 9
     processes, then every job is activated and completed in waves until
@@ -1479,14 +1520,16 @@ def phase_engine(card: str, n_instances: int = 2000) -> dict:
     records of the process element equal the instances created, and the
     harness finds every instance done. Prints records/s and instances/s
     over the wall from deployment to the last completion, with whether the
-    native codec loaded and which ``SortedList`` the durable store has."""
+    native codec loaded and which ``SortedList`` the durable store has.
+    Returns the rates and the log: every record's position, source
+    position, processed flag and bytes."""
     from zeebe_tpu_torch import native
     from zeebe_tpu_torch.state import durable
 
     models = [W.one_task()] + W.mixed_definitions()
     pids = [m.process_id for m in models]
     with tempfile.TemporaryDirectory() as tmp:
-        h = EngineHarness(tmp)
+        h = serving_harness(tmp) if kernel else EngineHarness(tmp)
         try:
             t0 = time.perf_counter()
             h.deploy(*models)
@@ -1511,6 +1554,8 @@ def phase_engine(card: str, n_instances: int = 2000) -> dict:
                 completed_jobs += len(jobs)
                 if waves > 64:
                     raise AssertionError("the job waves did not drain")
+            if kernel:
+                torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             created = [r.record.value["processInstanceKey"] for r in
                        h.exporter.all().with_value_type(ValueType.PROCESS_INSTANCE_CREATION)
@@ -1524,16 +1569,86 @@ def phase_engine(card: str, n_instances: int = 2000) -> dict:
                                      f"{n_instances}")
             if not all(h.is_instance_done(k) for k in created):
                 raise AssertionError("engine: an instance is still live after the waves")
+            log_records = [(v.position, v.source_position, v.processed, v.record.to_bytes())
+                           for v in h.stream.new_reader(1)]
         finally:
             h.close()
     codec = native.load_codec() is not None
-    log(f"phase10 engine stack [{card}]: sequential EngineHarness, one_task + mixed set, "
+    label = ("phase11 serving write path" if kernel
+             else "phase10 engine stack")
+    log(f"{label} [{card}]: {'partition KernelBackend on the card' if kernel else 'sequential EngineHarness'}, "
+        f"one_task + mixed set, "
         f"{n_instances} instances ({done} completed), {completed_jobs} jobs in {waves} waves, "
         f"{records} records in {wall:.3f} s: {records / wall:.1f} records/s, "
         f"{n_instances / wall:.1f} instances/s; native codec "
         f"{'loaded' if codec else 'not loaded'}, SortedList from {durable.SortedList.__module__}")
     return {"records_per_s": records / wall, "instances_per_s": n_instances / wall,
-            "records": records, "native": codec}
+            "records": records, "native": codec, "log": log_records,
+            "backend": h.kernel_backend}
+
+
+#: the fallback reasons of a clean serving run: the sequential heads (the
+#: deployment, each wave's job activation); anything else is a declined group
+SEQUENTIAL_HEADS = "head-sequential:"
+
+
+def compile_seconds() -> dict:
+    """The compile seam's observations: bucket → (first dispatches, seconds)."""
+    hist = P._M_COMPILE_SECONDS
+    return {c.label_values[0]: (c.count, c.sum) for c in hist._children_snapshot()}
+
+
+def phase_serving(card: str, sequential: dict, n_instances: int = 2000) -> dict:
+    """Phase 11: the serving write path on the card. Phase 10's commands go
+    through the port's StreamProcessor with the partition's KernelBackend
+    on the card (admission, the group on ``k_chunk``, materialization),
+    from the same clock start. The record log must be byte-identical to
+    phase 10's sequential log, every instance complete, every one of the
+    nine definitions 100% on the kernel path, no group declined for any
+    reason, nothing shadow-quarantined, and ``k_chunk`` launched (counts
+    zeroed right before the run, read right after)."""
+    reset_shared_device_health()
+    kb.install_device_chaos(None)
+    before = compile_seconds()
+    A.reset_launch_counts()
+    got = phase_engine(card, n_instances, kernel=True)
+    launches = A.launch_counts()
+    grid = A.grid_launch_counts()
+    backend = got["backend"]
+    if got["log"] != sequential["log"]:
+        diverged = next((i for i, (a, b) in enumerate(zip(got["log"], sequential["log"]))
+                         if a != b), min(len(got["log"]), len(sequential["log"])))
+        raise AssertionError(f"phase11: the log differs from phase 10's at record {diverged} "
+                             f"({len(got['log'])} against {len(sequential['log'])} records)")
+    acct = backend.accounting
+    pids = [m.process_id for m in [W.one_task()] + W.mixed_definitions()]
+    coverage = {pid: acct.per_definition.get(pid, [0, 0])[:2] for pid in pids}
+    if any(kernel == 0 or host for kernel, host in coverage.values()):
+        raise AssertionError(f"phase11: kernel coverage not 100%: {coverage}")
+    declined = {r: n for r, n in acct.reasons.items() if not r.startswith(SEQUENTIAL_HEADS)}
+    if declined or backend.shadow_quarantined:
+        raise AssertionError(f"phase11: groups declined {declined}, "
+                             f"{backend.shadow_quarantined} shadow-quarantined")
+    if launches["run_collect"] <= 0 or grid["fused"] != launches["run_collect"]:
+        raise AssertionError(f"phase11: k_chunk launches {launches['run_collect']}, grid {grid}")
+    compiles = {b: (n - before.get(b, (0, 0.0))[0], s - before.get(b, (0, 0.0))[1])
+                for b, (n, s) in compile_seconds().items() if n > before.get(b, (0, 0.0))[0]}
+    health = backend.health
+    log(f"phase11 serving write path [{card}]: log byte-identical to phase 10's "
+        f"({got['records']} records); {got['records_per_s']:.1f} records/s, "
+        f"{got['instances_per_s']:.1f} instances/s against the sequential "
+        f"{sequential['records_per_s']:.1f} and {sequential['instances_per_s']:.1f}; "
+        f"{backend.groups_processed} groups, {backend.commands_processed} commands on the "
+        f"kernel, coverage {acct.coverage_ratio() * 100:.1f}% of routed commands (every one "
+        f"of the 9 definitions 100%), template hits {backend.template_hits}, misses "
+        f"{backend.template_misses}; k_chunk launches {launches['run_collect']} "
+        f"({launches['step']} lock-steps); shadow checks {health.shadow_checks}, "
+        f"0 mismatches; first dispatch per bucket (compile seam) "
+        f"{ {b: s for b, (n, s) in compiles.items()} } s; sequential heads "
+        f"{dict(acct.reasons)}")
+    return {"records_per_s": got["records_per_s"], "instances_per_s": got["instances_per_s"],
+            "launches": launches["run_collect"], "groups": backend.groups_processed,
+            "commands": backend.commands_processed, "compiles": compiles}
 
 
 def main() -> int:
@@ -1584,7 +1699,8 @@ def main() -> int:
     decision = phase_decision(rng, dev, card)
     seam = phase_fault_seam(rng, dev, card, slice_info["tables"], slice_info["dt"])
     phase_telemetry(slice_info, dev, card)
-    phase_engine(card)
+    sequential = phase_engine(card)
+    serving = phase_serving(card, sequential)
     timing["decision"] = {**decision["bench"]}
     worst["decision"] = decision["err"]
     log(f"sharded timings [{card}] at {N_SHARDS} shards of the serving geometry: "
@@ -1663,6 +1779,9 @@ def main() -> int:
         if name == "run_to_completion":
             kernels_line[-1].update(step_ms=t["step_ms"], step_bound_ms=t["step_bound_ms"],
                                     chain_step_ms=t["chain_step_ms"], live_steps=t["steps"])
+        if name == "run_collect":
+            # k_chunk's launches on the serving write path (phase 11)
+            kernels_line[-1].update(engine_launches=serving["launches"])
         if name == "decision":
             kernels_line[-1].update(serial_ms=t["serial_ms"], profiled_ms=t["profiled_ms"],
                                     serial_profiled_ms=t["serial_profiled_ms"])

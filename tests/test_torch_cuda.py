@@ -20,7 +20,12 @@ import torch
 
 from zeebe_tpu_torch.dmn import parse_dmn_xml
 from zeebe_tpu_torch.engine import kernel_backend as kb
-from zeebe_tpu_torch.engine.device_health import HEALTHY, SUSPECT, reset_shared_device_health
+from zeebe_tpu_torch.engine.device_health import (
+    HEALTHY,
+    SUSPECT,
+    reset_shared_device_health,
+    shared_device_health,
+)
 from zeebe_tpu_torch.ops import decision as D
 from zeebe_tpu_torch.models.bpmn import Bpmn, transform
 from zeebe_tpu_torch.ops import automaton as A
@@ -817,6 +822,158 @@ def test_wedge_on_card_is_typed_and_the_next_group_runs(cuda, clean_plane):
     kb.install_device_chaos(None)
     again = kb.run_group(dt, tables.kernel_config, state, I, T, defense=defense)
     assert again.fail_reason is None
+
+
+# ---------------------------------------------------------------------------
+# the serving write path: the kernel-backed harness on the card
+
+
+def _harness_log(h) -> list:
+    return [(v.position, v.source_position, v.processed, v.record.to_bytes())
+            for v in h.stream.new_reader(1)]
+
+
+def _backend_counters(backend) -> dict:
+    return {"groups": backend.groups_processed, "commands": backend.commands_processed,
+            "fallbacks": backend.fallbacks, "reasons": dict(backend.fallback_reasons),
+            "hits": backend.template_hits, "misses": backend.template_misses,
+            "audits": backend.template_audits, "quarantined": backend.shadow_quarantined,
+            "accounting": backend.accounting.mark()}
+
+
+def _drive_waves(h, models, n: int) -> None:
+    """Deploy, create ``n`` instances round robin (x = i mod 30), complete
+    every job in waves."""
+    from zeebe_tpu_torch.logstreams import LogAppendEntry
+    from zeebe_tpu_torch.protocol import ValueType, command
+    from zeebe_tpu_torch.protocol.intent import JobIntent, ProcessInstanceCreationIntent
+
+    h.deploy(*models)
+    pids = [m.process_id for m in models]
+    for i in range(n):
+        h.stream.writer.try_write([LogAppendEntry(command(
+            ValueType.PROCESS_INSTANCE_CREATION, ProcessInstanceCreationIntent.CREATE,
+            {"bpmnProcessId": pids[i % len(pids)], "version": -1, "variables": {"x": i % 30}}))])
+    h.pump()
+    types = sorted({r.record.value["type"] for r in
+                    h.exporter.job_records().with_intent(JobIntent.CREATED)})
+    for _ in range(64):
+        jobs = [j for jt in types for j in h.activate_jobs(jt, max_jobs=1000)]
+        if not jobs:
+            return
+        for job in jobs:
+            h.complete_job(job["key"])
+    raise AssertionError("the job waves did not drain")
+
+
+def _three_runs(drive, device) -> tuple:
+    """(sequential log, kernel log on ``device``, counters, kernel log on the
+    CPU, counters) of one drive."""
+    from zeebe_tpu_torch.testing import EngineHarness
+
+    out = []
+    for kernel, dev in ((False, None), (True, device), (True, "cpu")):
+        reset_shared_device_health()
+        h = EngineHarness(use_kernel_backend=kernel, device=dev)
+        try:
+            drive(h)
+            out.append(_harness_log(h))
+            if kernel:
+                out.append(_backend_counters(h.kernel_backend))
+        finally:
+            h.close()
+    return tuple(out)
+
+
+@pytest.mark.parametrize("workload", ["one_task", "mixed", "random_seed_4"])
+def test_kernel_harness_on_card_writes_the_sequential_log(cuda, clean_plane, workload):
+    import random
+
+    if workload == "random_seed_4":
+        threads = torch.get_num_threads()
+        from torch_kernel_flows import flow_module
+
+        # the helper pins torch to one thread for the CPU suite's workers
+        torch.set_num_threads(threads)
+        gen_module = flow_module("test_randomized_parity", "zeebe_tpu_torch")
+        gen_rng = random.Random(4)
+        gen = gen_module._Gen(gen_rng, "rand_4")
+        model = gen.build()
+        instances = gen_rng.randint(1, 3)
+
+        def drive(h):
+            gen_module._drive(h, gen, model, random.Random(5), instances, True)
+    else:
+        models = [W.one_task()] if workload == "one_task" else W.mixed_definitions()
+
+        def drive(h):
+            _drive_waves(h, models, 300)
+
+    A.reset_launch_counts()
+    seq, card_log, card_counts, cpu_log, cpu_counts = _three_runs(drive, cuda)
+    assert card_log == seq and cpu_log == seq
+    assert card_counts == cpu_counts
+    assert card_counts["commands"] > 0
+    assert A.launch_counts()["run_collect"] > 0
+
+
+def test_kernel_harness_corruption_caught_before_commit_on_card(cuda, clean_plane, tmp_path):
+    import json as _json
+
+    from zeebe_tpu_torch.testing import EngineHarness
+
+    models = W.mixed_definitions()
+    reset_shared_device_health()
+    h = EngineHarness()
+    try:
+        _drive_waves(h, models, 200)
+        seq = _harness_log(h)
+    finally:
+        h.close()
+    reset_shared_device_health()
+    health = shared_device_health()
+    health.cfg.shadow_sample_rate = 1.0
+    controller = DeviceChaosController(DeviceFaultPlan(seed=3, corrupt_p=1.0, flips=3), "t")
+    controller.ledger_file = str(tmp_path / "ledger.jsonl")
+    kb.install_device_chaos(controller)
+    h = EngineHarness(use_kernel_backend=True, device=cuda)
+    try:
+        _drive_waves(h, models, 200)
+        got = _harness_log(h)
+        backend = h.kernel_backend
+    finally:
+        h.close()
+    assert got == seq
+    assert backend.shadow_quarantined > 0 and backend.groups_processed > 0
+    lines = [_json.loads(line) for line in open(controller.ledger_file)]
+    injected = {e["seq"] for e in lines if e["kind"] == "inject"}
+    assert injected and injected == {e["seq"] for e in lines if e["kind"] == "caught"}
+
+
+def test_kernel_harness_wedge_reruns_sequentially_on_card(cuda, clean_plane):
+    from zeebe_tpu_torch.testing import EngineHarness
+
+    models = [W.one_task()]
+    h = EngineHarness()
+    try:
+        _drive_waves(h, models, 50)
+        seq = _harness_log(h)
+    finally:
+        h.close()
+    health = shared_device_health()
+    health.cfg.dispatch_timeout_ms = 200
+    kb.install_device_chaos(DeviceChaosController(
+        DeviceFaultPlan(seed=1, stall_p=1.0, stall_ms=600), "t"))
+    h = EngineHarness(use_kernel_backend=True, device=cuda)
+    try:
+        _drive_waves(h, models, 50)
+        got = _harness_log(h)
+        backend = h.kernel_backend
+    finally:
+        h.close()
+    assert got == seq
+    assert backend.accounting.reasons["device-wedged"] > 0
+    assert backend.groups_processed == 0
 
 
 # ---------------------------------------------------------------------------

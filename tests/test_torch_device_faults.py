@@ -450,7 +450,7 @@ class TestContainment:
         state, I, T = group(8)
         chunk = kb._dispatch(_DT, state, 4, _TABLES.kernel_config, A.run_collect)
         before = chunk.rows.clone()
-        pg = kb._PendingGroup(_DT, _TABLES.kernel_config, I, T, 4, 64, False, shadow=True)
+        pg = kb._DeviceRun(_DT, _TABLES.kernel_config, I, T, 4, 64, False, shadow=True)
         flat = defense._fetch_rows(pg, chunk, 0)
         assert controller.counts["corrupt"] == 1
         assert torch.equal(chunk.rows, before)
@@ -462,8 +462,9 @@ class TestShadowVerification:
     def test_corruption_caught_before_return(self, tmp_path):
         """Every group corrupt and every group shadowed: every ledger
         injection has a caught line; a shadow catch quarantines the device
-        result as a typed decline (the group's initial state back, no
-        steps), a containment catch declines as no-quiesce or overflow."""
+        result and returns the host oracle's (the clean run's steps and
+        final state), a containment catch declines as no-quiesce or
+        overflow."""
         health = shared_device_health()
         health.cfg.shadow_sample_rate = 1.0
         controller = DeviceChaosController(
@@ -478,11 +479,12 @@ class TestShadowVerification:
             kb.install_device_chaos(controller)
             assert clean.fail_reason is None
             out = run(state, I, T, defense)
-            assert out.steps is None
-            if out.fail_reason == "device-shadow-mismatch":
-                assert out.state is state  # the device result is discarded
+            if out.fail_reason is None:
+                assert same_steps(out.steps, clean.steps)
+                assert same_state(out.state, clean.state)
                 outcomes.append("shadow")
             else:
+                assert out.steps is None
                 assert out.fail_reason in ("no-quiesce", "token-overflow")
                 outcomes.append("contained")
         lines = [json.loads(line) for line in Path(
@@ -493,7 +495,7 @@ class TestShadowVerification:
         assert {e["how"] for e in lines if e["kind"] == "caught"} <= {"shadow", "contained"}
         assert "shadow" in outcomes
         assert defense.shadow_quarantined == outcomes.count("shadow")
-        assert defense.fallbacks == len(outcomes)
+        assert defense.fallbacks == outcomes.count("contained")
         assert health.shadow_mismatches >= outcomes.count("shadow")
         assert health.state in (SUSPECT, QUARANTINED)
 

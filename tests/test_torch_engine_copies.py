@@ -4,9 +4,10 @@ Every module of the engine stack (``testing/copies.py``'s ``ENGINE_STACK``)
 equals ``as_copied`` of its reference. Every other file of the port with a
 counterpart in the reference either equals it the same way or is named in
 ``REWRITTEN`` with the reason; for the two files rewritten in this slice
-(the profiler's device half and the harness's kernel-backend branch) an AST
-test holds every member they keep to the reference. Also here: the harness
-refuses the kernel backend, runs without JAX, and the profiler's device
+(the profiler's device half and the harness, whose one addition is the
+kernel backend's ``device``) an AST test holds every member they keep to
+the reference. Also here: the kernel-backed harness needs a device where
+CUDA is missing, both harnesses run without JAX, and the profiler's device
 half on ``torch.cuda`` (CPU tests with fake devices and injected capture
 functions).
 """
@@ -41,9 +42,10 @@ REWRITTEN = {
     "ops/parity.py": "step-event decoding on the port's packed rows",
     "parallel/mesh.py": "shard blocks on one card",
     "parallel/mesh_runner.py": "one sharded dispatch of the shard blocks on one card",
-    "engine/kernel_backend.py": "registry half copied; the device half on torch",
+    "engine/kernel_backend.py": "registry half and the backend's host members copied; "
+                                "the device half and the backend's device members on torch",
     "observability/profiler.py": "device list, memory gauges and trace capture on torch.cuda",
-    "testing/__init__.py": "the harness with the kernel backend refused; no broker helpers",
+    "testing/__init__.py": "the harness with the kernel backend's device; no broker helpers",
 }
 
 
@@ -101,6 +103,8 @@ def _top_level(text: str) -> dict[str, ast.AST]:
 
 
 def _dump(node) -> str:
+    if isinstance(node, str):
+        return node
     if isinstance(node, list):
         return "\n".join(ast.dump(n) for n in node)
     return ast.dump(node)
@@ -148,27 +152,53 @@ _HARNESS_REF = _top_level(as_copied((REF / "testing/__init__.py").read_text()))
 _HARNESS_PORT = _top_level((PORT / "testing/__init__.py").read_text())
 
 
-def _without_kernel_branch(init: ast.FunctionDef) -> str:
-    """``EngineHarness.__init__`` without its ``if use_kernel_backend:``
-    statement, the one place the port's harness differs."""
-    init = ast.parse(ast.unparse(init)).body[0]
-    init.body = [s for s in init.body
-                 if not (isinstance(s, ast.If) and isinstance(s.test, ast.Name)
-                         and s.test.id == "use_kernel_backend")]
-    return ast.dump(init)
+class _WithoutDevice(ast.NodeTransformer):
+    """A harness member without the kernel backend's ``device``: the
+    keyword argument, the statement resolving it before anything is
+    opened, and the keyword passed on. The one place the port's harness
+    differs."""
+
+    def visit_arguments(self, node: ast.arguments) -> ast.arguments:
+        keep = [(a, d) for a, d in zip(node.args[len(node.args) - len(node.defaults):],
+                                       node.defaults) if a.arg != "device"]
+        required = node.args[:len(node.args) - len(node.defaults)]
+        node.args = required + [a for a, _ in keep]
+        node.defaults = [d for _, d in keep]
+        return node
+
+    def visit_FunctionDef(self, node: ast.FunctionDef) -> ast.FunctionDef:
+        node.body = [s for s in node.body
+                     if not (isinstance(s, ast.If) and isinstance(s.test, ast.Name)
+                             and s.test.id == "use_kernel_backend"
+                             and "resolve_device" in ast.unparse(s))]
+        return self.generic_visit(node)
+
+    def visit_Call(self, node: ast.Call) -> ast.Call:
+        node.keywords = [k for k in node.keywords if k.arg != "device"]
+        return self.generic_visit(node)
+
+
+def _without_device(node: ast.AST) -> str:
+    return ast.dump(_WithoutDevice().visit(ast.parse(ast.unparse(node)).body[0]))
 
 
 @pytest.mark.parametrize("name", ["<imports>", "ControlledClock", "MultiPartitionHarness"])
 def test_harness_keeps_the_reference_member(name):
-    assert _dump(_HARNESS_PORT[name]) == _dump(_HARNESS_REF[name])
+    port, ref = _HARNESS_PORT[name], _HARNESS_REF[name]
+    if name == "MultiPartitionHarness":
+        port, ref = _without_device(port), _without_device(ref)
+    assert _dump(port) == _dump(ref)
 
 
 def test_harness_keeps_every_engine_harness_member_but_the_kernel_branch():
+    """Every member but ``__init__`` as the reference's; ``__init__`` differs
+    by the kernel backend's ``device`` alone."""
     ref, port = (_members(t["EngineHarness"]) for t in (_HARNESS_REF, _HARNESS_PORT))
     assert set(port) == set(ref)
     for name in set(ref) - {"__init__"}:
         assert ast.dump(port[name]) == ast.dump(ref[name]), name
-    assert _without_kernel_branch(port["__init__"]) == _without_kernel_branch(ref["__init__"])
+    assert _without_device(port["__init__"]) == _without_device(ref["__init__"])
+    assert ast.dump(port["__init__"]) != ast.dump(ref["__init__"])
 
 
 def test_harness_lacks_only_the_broker_helpers():
@@ -176,14 +206,33 @@ def test_harness_lacks_only_the_broker_helpers():
     assert set(_HARNESS_PORT) <= set(_HARNESS_REF)
 
 
-def test_kernel_backend_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="kernel backend"):
+def test_kernel_backend_needs_a_device_without_cuda(tmp_path, monkeypatch):
+    """No device means CUDA: where CUDA is missing the kernel-backed harness
+    raises, before opening anything, instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         EngineHarness(tmp_path / "one", use_kernel_backend=True)
-    with pytest.raises(NotImplementedError, match="kernel backend"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         MultiPartitionHarness(partition_count=2, directory=tmp_path / "two",
                               use_kernel_backend=True)
-    # refused before opening anything
     assert not (tmp_path / "one").exists()
+    h = EngineHarness(tmp_path / "three", use_kernel_backend=True, device="cpu")
+    try:
+        assert h.kernel_backend.device == torch.device("cpu")
+    finally:
+        h.close()
+
+
+def test_backend_router_waits_for_a4(tmp_path):
+    from zeebe_tpu_torch.engine.kernel_backend import KernelBackend
+
+    h = EngineHarness(tmp_path)
+    try:
+        with pytest.raises(NotImplementedError, match="A4"):
+            KernelBackend(h.engine, router="shared", device="cpu")
+        assert KernelBackend(h.engine, device="cpu").device == torch.device("cpu")
+    finally:
+        h.close()
 
 
 _HARNESS_SCRIPT = """
@@ -192,7 +241,8 @@ from zeebe_tpu_torch.models.bpmn import Bpmn
 from zeebe_tpu_torch.protocol.intent import ProcessInstanceIntent
 from zeebe_tpu_torch.testing import EngineHarness
 
-h = EngineHarness()
+kernel = sys.argv[1:] == ["kernel"]
+h = EngineHarness(use_kernel_backend=kernel, device="cpu" if kernel else None)
 h.deploy(Bpmn.create_executable_process("one_task").start_event("start")
          .service_task("task", job_type="work").end_event("end").done())
 keys = [h.create_instance("one_task", {"x": i}) for i in range(3)]
@@ -202,6 +252,7 @@ done = (h.exporter.process_instance_records()
         .with_intent(ProcessInstanceIntent.ELEMENT_COMPLETED)
         .with_value(bpmnElementType="PROCESS").count())
 assert done == 3 and all(h.is_instance_done(k) for k in keys), done
+assert not kernel or h.kernel_backend.commands_processed == 6
 h.close()
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "zeebe_tpu"))
@@ -211,6 +262,15 @@ print("LOADED", loaded)
 
 def test_harness_runs_without_loading_jax():
     proc = subprocess.run([sys.executable, "-c", _HARNESS_SCRIPT], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout
+
+
+def test_kernel_harness_runs_without_loading_jax():
+    """The kernel-backed harness (plain version on the CPU) takes every
+    command of one_task through the backend without JAX."""
+    proc = subprocess.run([sys.executable, "-c", _HARNESS_SCRIPT, "kernel"], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LOADED []" in proc.stdout

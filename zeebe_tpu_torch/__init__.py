@@ -9,9 +9,8 @@ deploy-time table compiler) are kept as copies here
 Layer map, the sequential engine stack first (copies unless noted):
 
 - ``testing``             ``EngineHarness``, ``MultiPartitionHarness``,
-                          ``ControlledClock`` (rewritten: the kernel backend
-                          is refused until its admission and
-                          materialization are ported)
+                          ``ControlledClock`` (rewritten: the kernel
+                          backend's ``device``)
 - ``stream``              the stream processor (processing and replay)
 - ``engine``              ``Engine``, state, appliers, BPMN processors,
                           timers, messages, signals, distribution
@@ -40,13 +39,15 @@ The device path:
                           version and the wrapper of the decision kernel
 - ``dmn``                 the host DMN evaluator (copy)
 - ``engine.eligibility``  element and definition eligibility reasons (copy)
-- ``engine.kernel_backend``  the registry (shared table set per partition,
-                          call/MI inlining, content fingerprint; copied) and
-                          the device half of the serving path: group arrays,
-                          chunked runs with prefetch, instance traces,
-                          partitions driven through a shared mesh runner, and
-                          the device-fault seam (watchdog, chaos hooks,
-                          containment, sampled shadow verification)
+- ``engine.kernel_backend``  ``KernelBackend``, the serving write path:
+                          admission, group build, route traces and
+                          materialization (copied), the registry (shared
+                          table set per partition, call/MI inlining, content
+                          fingerprint; copied), and the device half: chunked
+                          runs with prefetch, partitions driven through a
+                          shared mesh runner, and the device-fault seam
+                          (watchdog, chaos hooks, containment, sampled
+                          shadow verification)
 - ``engine.device_health``  the device health ladder (copy)
 - ``control.audit``       the control_adjust audit record (copy)
 - ``testing.chaos_device``, ``testing.chaos_common``  seeded device chaos

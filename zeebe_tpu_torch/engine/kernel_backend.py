@@ -1,60 +1,72 @@
-"""The engine's batched execution backend: the registry and the device half.
+"""The engine's batched execution backend on torch: ``KernelBackend``.
 
-The counterpart of ``zeebe_tpu/engine/kernel_backend.py``, in two parts.
+The counterpart of ``zeebe_tpu/engine/kernel_backend.py``. The stream
+processor hands the backend a run of committed commands (creations, job
+completions, timer triggers, message correlations); the backend admits them
+into a group, runs every touched instance lock-step on the device in chunks
+of ``run_collect``, traces each instance's route from the packed step rows,
+and materializes the record stream the sequential engine would have written,
+byte for byte, through the normal writers.
 
-The registry half is copied from the reference: ``KernelRegistry`` and the
-host code it runs (element eligibility, call-activity and multi-instance
-inlining, the per-definition ``_DefInfo``). A partition's registry compiles
-its deployed definitions into one shared table set; ``tables_fingerprint``
-is a content digest of that set, equal across partitions that deployed the
-same resources, and gates which groups may share one mesh dispatch. Only
-``device_tables`` and ``device_tables_for`` differ from the reference: they
-place the port's ``DeviceTables`` on a torch device.
+What is copied from the reference (``testing/copies.py`` writes and checks
+it): the registry half (``KernelRegistry``, element eligibility, call-
+activity and multi-instance inlining, ``_DefInfo``), the fingerprint walk of
+the burst templates, the admission and materialization dataclasses, and
+every member of ``KernelBackend`` that is host code: candidate tests,
+admission, the group build, ``begin_group``/``finish_group``, the route
+trace and materialization. The registry's ``device_tables`` and
+``device_tables_for`` place the port's ``DeviceTables`` on a torch device.
 
-The device half (``KernelBackend``'s device path): a group of admitted
-instances is padded to a shape bucket (``build_group_arrays``), placed on
-the device (``group_state``), run in chunks of ``run_collect`` until it
-quiesces, with the next chunk dispatched before the current one's rows are
-fetched (``run_group``), and each instance's route is traced from the packed
-step rows (``cascade_ops``) — the trace the record writer interprets.
+What is the port's own, the device half: a group padded to its shape bucket
+is placed on the device (``group_state``) and run in chunks until it
+quiesces, the next chunk dispatched before the current one's rows are
+fetched (``run_group``, ``_complete_device_run``); the device-fault seam
+(``DeviceDefense``: chaos hooks at dispatch and fetch, the dispatch
+watchdog, containment of a failed dispatch or a wedge, sampled shadow
+verification against the plain ``run_collect`` on the CPU, the health
+ladder). ``KernelBackend`` is a ``DeviceDefense``, and its device members
+(``_start_kernel``, ``_await_kernel``, ``_group_state``,
+``_dispatch_first_chunk``, ``_complete_device_run``) run on that half.
+The backend runs on CUDA unless built with ``device="cpu"``. A contained
+group declines and its head command runs on the sequential engine; a
+shadow mismatch commits the host oracle's steps and latches SUSPECT, as in
+the reference.
 
-Instances come in as plain records (``GroupInstance``), not the reference's
-admission objects: admission and materialization into records are not part
-of this module.
-
-The device-fault seam (``DeviceDefense``, passed to ``run_group``): the
-device-chaos hooks at dispatch and fetch (``install_device_chaos``), the
-dispatch watchdog (``_watchdog_call`` on a bounded thread pool), containment
-of a failed dispatch or a wedge as a typed decline, and sampled shadow
-verification against the plain ``run_collect`` on the CPU, which feeds the
-health ladder (``engine.device_health``).
-
-``drive_group`` runs one group through waves — each wave runs the device
-until it quiesces with every token parked, traces the wave, then completes
-every parked job (``complete_jobs``) as job workers would, until no job is
-left. ``drive_groups_on_mesh`` does the same for several partitions at
-once, each on its own thread, through a shared ``MeshKernelRunner``
+The device half also runs without the engine: ``drive_group`` runs one group
+of plain ``GroupInstance`` records through job-completion waves — the
+device until it quiesces with every token parked, a trace of the wave, then
+every parked job completed (``complete_jobs``) as job workers would — and
+``drive_groups_on_mesh`` does the same for several partitions at once, each
+on its own thread, through a shared ``MeshKernelRunner``
 (``run_group_on_mesh``): up to ``n_shards`` partitions' groups ride one
-sharded dispatch.
+sharded dispatch. Both build and trace their groups with the backend's own
+``_build_group_arrays`` and ``_cascade_ops``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import threading
 import time
 import zlib
 from dataclasses import dataclass, field
-from typing import Any
+from types import SimpleNamespace
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from zeebe_tpu_torch.engine.device_health import SUSPECT, shared_device_health
+from zeebe_tpu_torch.engine.eligibility import PathAccounting, esp_start_host_reason
+from zeebe_tpu_torch.feel.feel import FeelEvalError
+from zeebe_tpu_torch.feel.feel import Lit as _FeelLit
+from zeebe_tpu_torch.feel.feel import Var as _FeelVar
 from zeebe_tpu_torch.models.bpmn import parse_bpmn_xml, transform
+from zeebe_tpu_torch.models.bpmn.executable import ExecutableElement, ExecutableProcess
+from zeebe_tpu_torch.ops import kernels
 from zeebe_tpu_torch.ops.automaton import (
-    PACK_MAX_ELEMENTS,
-    PACK_MAX_TOKENS,
     PHASE_AT,
     PHASE_DONE,
     PHASE_WAIT,
@@ -65,11 +77,6 @@ from zeebe_tpu_torch.ops.automaton import (
     state_from_numpy,
     unpack_events,
 )
-from zeebe_tpu_torch.engine.device_health import SUSPECT, shared_device_health
-from zeebe_tpu_torch.engine.eligibility import esp_start_host_reason
-from zeebe_tpu_torch.feel.feel import Lit as _FeelLit
-from zeebe_tpu_torch.feel.feel import Var as _FeelVar
-from zeebe_tpu_torch.models.bpmn.executable import ExecutableElement, ExecutableProcess
 from zeebe_tpu_torch.ops.tables import (
     _MI_BODY_TYPES,
     ConditionNotCompilable,
@@ -82,8 +89,18 @@ from zeebe_tpu_torch.ops.tables import (
     ProcessTables,
     compile_tables,
 )
+from zeebe_tpu_torch.ops.tables import f64_exact as _f64_exact
 from zeebe_tpu_torch.parallel.mesh_runner import GroupRequest, _pad_axis0
-from zeebe_tpu_torch.protocol.enums import BpmnElementType, BpmnEventType
+from zeebe_tpu_torch.protocol import ValueType
+from zeebe_tpu_torch.protocol.enums import BpmnElementType, BpmnEventType, ErrorType
+from zeebe_tpu_torch.protocol.intent import (
+    IncidentIntent,
+    JobIntent,
+    ProcessInstanceCreationIntent,
+    ProcessMessageSubscriptionIntent,
+    TimerIntent,
+)
+from zeebe_tpu_torch.protocol.intent import ProcessInstanceIntent as PI
 
 logger = logging.getLogger(__name__)
 
@@ -92,6 +109,116 @@ logger = logging.getLogger(__name__)
 MAX_GROUP = 2048
 CHUNK_STEPS = 8
 MAX_STEPS = 4096
+
+
+# ---------------------------------------------------------------------------
+# module helpers of the burst templates and admission (copied)
+
+# copied from the reference: _py_pack_fingerprint .. _CANDIDATE_COMMANDS
+def _py_pack_fingerprint(docs, roles: dict[int, str],
+                         fp_fields: frozenset[str]
+                         ) -> tuple[bytes, list[int], set[int]]:
+    """Pure-Python fingerprint walk — the specification the native
+    ``pack_fingerprint`` (native/codec.c) is byte-equality-tested against.
+
+    Pass 1 collects large ints pinned at NON-whitelisted positions — a value
+    that also occurs pinned elsewhere must not be extracted (the slow path
+    may copy it from the pinned position, and patching every value-equal
+    occurrence would corrupt that copy). Pass 2 emits msgpack with role
+    markers ["\\x00r", tag], extraction markers ["\\x00f", ordinal], and
+    "\\x00s" escaping of NUL-prefixed user strings (so user data can never
+    forge a marker — prefix escaping keeps the normalization injective).
+
+    The returned pinned set is EXACTLY the ints the fingerprint pins
+    byte-for-byte — the sound ``Roles.allowed`` constant set for template
+    capture (an int the fingerprint normalized away varies per command and
+    must never be baked into a template as a constant)."""
+    from zeebe_tpu_torch.protocol.msgpack import py_packb
+
+    pinned: set[int] = set()
+
+    def scan(obj, field=None):
+        t = type(obj)
+        if t is int:
+            if obj >= _ROLE_VALUE_MIN:
+                if obj not in roles and field is None:
+                    pinned.add(obj)
+            elif obj <= -_ROLE_VALUE_MIN:
+                # large negatives are never roles and never extracted —
+                # norm() emits them unchanged at every position, so they are
+                # fingerprint-pinned and sound template constants
+                pinned.add(obj)
+        elif t is dict:
+            for k, v in obj.items():
+                scan(k)
+                scan(v, k if type(k) is str and k in fp_fields else None)
+        elif t is list or t is tuple:
+            for v in obj:
+                scan(v)
+
+    scan(docs)
+
+    fp_values: list[int] = []
+    fp_ordinal: dict[int, int] = {}
+
+    def norm(obj, field=None):
+        # exact-type dispatch; bool/float/None fall through unchanged
+        t = type(obj)
+        if t is int:
+            if obj >= _ROLE_VALUE_MIN:
+                r = roles.get(obj)
+                if r is not None:
+                    # tuple, not list: markers must stay hashable so a
+                    # role-valued int used as a dict KEY normalizes instead
+                    # of crashing (packs to the same msgpack array bytes)
+                    return ("\x00r", r)
+                if field is not None and obj not in pinned:
+                    i = fp_ordinal.get(obj)
+                    if i is None:
+                        i = len(fp_values)
+                        fp_ordinal[obj] = i
+                        fp_values.append(obj)
+                    return ("\x00f", i)
+            return obj
+        if t is str:
+            return ("\x00s" + obj) if obj.startswith("\x00") else obj
+        if t is dict:
+            return {
+                norm(k): norm(v, k if type(k) is str and k in fp_fields else None)
+                for k, v in obj.items()
+            }
+        if t is list or t is tuple:
+            return [norm(v) for v in obj]
+        return obj
+
+    return py_packb(norm(docs)), fp_values, pinned
+
+
+from zeebe_tpu_torch.native import codec_fn as _codec_fn
+
+_native_pack_fingerprint = _codec_fn("pack_fingerprint")
+
+# admission cap on a device MI body's cardinality: bigger collections take
+# the sequential path (also far below the PI-batch chunking threshold, so
+# the chunked-activation shape never reaches the device)
+_MI_MAX_CARD = 16
+
+# token phases (mirrors zeebe_tpu_torch.ops.automaton)
+_PHASE_AT = 0
+_PHASE_WAIT = 1
+_PHASE_DONE = 2
+
+# below this, ints are never treated as keys by value (burst_templates)
+_ROLE_VALUE_MIN = 1 << 32
+_MISSING = object()
+
+_CANDIDATE_COMMANDS = {
+    (ValueType.PROCESS_INSTANCE_CREATION, int(ProcessInstanceCreationIntent.CREATE)),
+    (ValueType.JOB, int(JobIntent.COMPLETE)),
+    (ValueType.TIMER, int(TimerIntent.TRIGGER)),
+    (ValueType.PROCESS_MESSAGE_SUBSCRIPTION, int(ProcessMessageSubscriptionIntent.CORRELATE)),
+}
+# end of the copy
 
 
 # ---------------------------------------------------------------------------
@@ -948,6 +1075,12 @@ class GroupInstance:
     mi_left: dict[int, int] = dataclasses.field(default_factory=dict)
     mi_cards: dict[int, int] = dataclasses.field(default_factory=dict)
 
+    @property
+    def info(self) -> SimpleNamespace:
+        """The definition's row as the backend's group build reads an
+        admitted instance's (``info.index``)."""
+        return SimpleNamespace(index=self.definition)
+
 
 def deploy(resources: list[str | bytes], max_fanout: int | None = None) -> ProcessTables:
     """BPMN XML resources → one shared table set (every process of every
@@ -956,80 +1089,27 @@ def deploy(resources: list[str | bytes], max_fanout: int | None = None) -> Proce
     return compile_tables(processes, max_fanout=max_fanout)
 
 
-def _pow2(n: int) -> int:
-    p = 8
-    while p < n:
-        p *= 2
-    return p
+def _tables_view(tables: ProcessTables, max_group: int = MAX_GROUP) -> SimpleNamespace:
+    """What the backend's group build and route trace read of the backend:
+    its table set, its group bound and its bucket rounding."""
+    return SimpleNamespace(registry=SimpleNamespace(tables=tables), max_group=max_group,
+                           _pow2=KernelBackend._pow2)
 
 
 def build_group_arrays(tables: ProcessTables, insts: list[GroupInstance],
                        max_group: int = MAX_GROUP):
     """Host (numpy) arrays for one group, padded to the shape bucket:
     (arrays, I, T), or None when the geometry exceeds the event-packing
-    bounds. Sets each token's ``slot``."""
-    n_real = len(insts)
-    n_tokens = sum(max(1, len(i.tokens)) for i in insts)
-    # two shape buckets: the small one (64) and the max-group one
-    small = min(64, _pow2(max_group))
-    I = small if n_real <= small else _pow2(max_group)
-    # token pool: the set's static live-width bound sizes it exactly; with
-    # no sound bound (parallel split on a cycle) keep the 4x factor
-    width = tables.token_width
-    mi_extra = sum(sum(i.mi_cards.values()) for i in insts if i.mi_cards)
-    if width > 0:
-        T = _pow2(max(width * I, n_tokens))
-    else:
-        T = _pow2(max(4 * I, 4 * n_tokens, n_tokens + mi_extra + I))
-    E = tables.max_elements
-    S = tables.num_slots
-    if T > PACK_MAX_TOKENS or E >= PACK_MAX_ELEMENTS:
-        logger.warning("kernel geometry T=%d E=%d exceeds event packing bounds", T, E)
-        return None
-
-    elem = np.full(T, -1, np.int32)
-    phase = np.zeros(T, np.int32)
-    inst_arr = np.zeros(T, np.int32)
-    def_of = np.zeros(I, np.int32)
-    var_slots = np.zeros((I, S, 2), np.int32)
-    join_counts = np.zeros((I, E), np.int32)
-    mi_left = np.zeros((I, E), np.int32)
-    done = np.zeros(I, np.bool_)
-    done[n_real:] = True  # padding rows must never report newly_done
-
-    slot = 0
-    for i in insts:
-        def_of[i.idx] = i.definition
-        for name, v in i.slots.items():
-            var_slots[i.idx, tables.slot_map.names[name]] = v
-        for jidx, count in i.join_counts.items():
-            join_counts[i.idx, jidx] = count
-        for row, n in i.mi_left.items():
-            mi_left[i.idx, row] = n
-        if i.new:
-            i.tokens = [Token(slot=slot, elem_idx=int(tables.start_elem[i.definition]))]
-            elem[slot] = i.tokens[0].elem_idx
-            phase[slot] = PHASE_AT
-            inst_arr[slot] = i.idx
-            slot += 1
-        else:
-            for tok in i.tokens:
-                tok.slot = slot
-                elem[slot] = tok.elem_idx
-                phase[slot] = tok.phase
-                inst_arr[slot] = i.idx
-                slot += 1
-    arrays = {
-        "elem": elem, "phase": phase, "inst": inst_arr, "def_of": def_of,
-        "var_slots": var_slots, "join_counts": join_counts,
-        "mi_left": mi_left, "done": done,
-    }
-    return arrays, I, T
+    bounds. Sets each token's ``slot``; a new instance gets one token at
+    its start event. The backend's own ``_build_group_arrays``."""
+    return KernelBackend._build_group_arrays(_tables_view(tables, max_group),
+                                             [SimpleNamespace(inst=i) for i in insts])
 
 
 def group_state(arrays: dict, device=None) -> dict:
     """The group's initial kernel state on ``device``: the host-filled arrays
-    plus zero incident flags and counters."""
+    plus zero incident flags and counters. The arrays are copied, never
+    shared, so they still hold the group's start after it ran."""
     I = arrays["def_of"].shape[0]
     return state_from_numpy({
         **arrays,
@@ -1085,9 +1165,10 @@ class GroupRun:
 
 
 @dataclasses.dataclass
-class _PendingGroup:
-    """One group's device run as the fault seam sees it: the reference's
-    ``_PendingGroup`` without admission and materialization."""
+class _DeviceRun:
+    """One bare group's device run (``run_group``): what the fault seam
+    reads and writes of the backend's ``_PendingGroup``, plus the chunking
+    and the oracle's start."""
 
     dt: DeviceTables
     config: Any
@@ -1099,13 +1180,15 @@ class _PendingGroup:
     failed: bool = False
     fail_reason: str | None = None
     chunks_run: int = 0
-    # shadow groups keep host copies of the initial arrays (the oracle's
+    # shadow groups keep host copies of the initial state (the oracle's
     # start) and of every fetched chunk's rows; corrupt_tokens are chaos-
     # ledger sequences the seam must report caught (shadow or containment)
     shadow: bool = False
+    canary: bool = False
     initial: dict | None = None
     raw_rows: list = field(default_factory=list)
     corrupt_tokens: list = field(default_factory=list)
+    t_shadow: float = 0.0
 
 
 def run_group(dt: DeviceTables, config, state: dict, I: int, T: int,
@@ -1125,24 +1208,30 @@ def run_group(dt: DeviceTables, config, state: dict, I: int, T: int,
     collect = collect or run_collect
     if pipeline_chunks is None:
         pipeline_chunks = state["elem"].is_cuda
-    pg = _PendingGroup(dt, config, I, T, chunk_steps, max_steps, pipeline_chunks)
+    pg = _DeviceRun(dt, config, I, T, chunk_steps, max_steps, pipeline_chunks)
     if defense is not None:
         return defense.run(pg, state, collect)
     first = _dispatch(dt, state, chunk_steps, config, collect)
-    return _complete_device_run(pg, first, collect, lambda chunk, k: fetch_rows(chunk))
+    return _complete_device_run(pg, first, collect, lambda chunk, k: fetch_rows(chunk),
+                                chunk_steps, max_steps)
 
 
-def _complete_device_run(pg: _PendingGroup, cur: _Chunk, collect, fetch) -> GroupRun:
+def _complete_device_run(pg, cur: _Chunk, collect, fetch, chunk_steps: int,
+                         max_steps: int) -> GroupRun:
     """The chunk loop behind the first dispatched chunk ``cur``; ``fetch``
-    (chunk, index) brings a chunk's rows to the host."""
-    chunk = pg.chunk_steps
+    (chunk, index) brings a chunk's rows to the host. ``pg`` (a
+    ``_DeviceRun`` or the backend's ``_PendingGroup``) gives the tables,
+    the geometry and whether to prefetch; the loop sets its ``chunks_run``
+    and, when the group does not quiesce or overflows its token pool, its
+    ``fail_reason``."""
+    chunk = chunk_steps
     T, I = pg.T, pg.I
     FO = pg.dt.out_target.shape[2]
     steps: list[dict] = []
     overflow = False
     state = cur.state
     nxt = None
-    max_chunks = max(1, pg.max_steps // chunk)
+    max_chunks = max(1, max_steps // chunk)
     hit_quiescence = False
     for k in range(max_chunks):
         if pg.pipeline_chunks and k >= 1 and k + 1 < max_chunks:
@@ -1169,13 +1258,25 @@ def _complete_device_run(pg: _PendingGroup, cur: _Chunk, collect, fetch) -> Grou
         state = cur.state
     if not hit_quiescence:
         pg.fail_reason = "no-quiesce"
-        logger.warning("kernel group did not quiesce in %d steps", pg.max_steps)
+        logger.warning("kernel group did not quiesce in %d steps", max_steps)
         return GroupRun(None, state, pg.chunks_run, pg.fail_reason)
     if overflow:
         pg.fail_reason = "token-overflow"
         logger.warning("kernel token pool overflow (T=%d)", T)
         return GroupRun(None, state, pg.chunks_run, pg.fail_reason)
     return GroupRun(steps, state, pg.chunks_run)
+
+
+def _profiler_annotation(name: str):
+    """``torch.profiler.record_function`` around one kernel-chunk dispatch
+    while the tracer is enabled: a ``torch.profiler`` capture then names the
+    chunk boundaries. A null context when tracing is off, so the dispatch
+    path pays one attribute read."""
+    from zeebe_tpu_torch.observability.tracer import get_tracer
+
+    if not get_tracer().enabled:
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(name)
 
 
 # ---------------------------------------------------------------------------
@@ -1290,20 +1391,27 @@ def _watchdog_call(fn, deadline_s: float):
     return box["value"]
 
 
-class DeviceDefense:
-    """What the reference's ``KernelBackend`` keeps for the device-fault
-    seam, for one partition: the shared health ladder, the shadow sampling
-    sequence, the partition id (it seeds the sampling stream), and the
-    counts of shadow-quarantined and declined groups. ``run_group(...,
-    defense=...)`` runs a group through it.
+#: runtime errors that are no device fault: the seam lets them propagate
+_NOT_DEVICE_FAULTS = (kernels.KernelBuildError, NotImplementedError, RecursionError)
 
-    Containment returns a failed group as a typed ``fail_reason``
-    (``device-dispatch-error``, ``device-wedged``) and never re-runs it: the
-    port has no sequential engine to hand it to yet. A shadow mismatch is
-    declined the same way (``device-shadow-mismatch``): the device result is
-    quarantined and the oracle's is not returned in its place, so a wrong
-    kernel surfaces as a decline rather than being patched by the plain
-    version.
+
+class DeviceDefense:
+    """The device-fault seam of one partition: the shared health ladder, the
+    shadow sampling sequence (seeded by the partition id), and the counts of
+    shadow-quarantined and declined groups and of the oracle's seconds.
+    ``KernelBackend`` is one; ``run_group(..., defense=...)`` runs a bare
+    group through one.
+
+    Its members take the group as the reference's backend does (``pg``:
+    the backend's ``_PendingGroup``, or ``run_group``'s ``_DeviceRun``) and
+    keep the reference's semantics. A device failure at dispatch or fetch
+    (a runtime error, or a watchdog wedge) is contained as a typed failure
+    (``device-dispatch-error``, ``device-wedged``) noted on the ladder, and
+    the caller declines the group: the backend's head command then runs on
+    the sequential engine. A kernel library that does not build and an
+    argument error are program faults and propagate.
+    A shadow mismatch quarantines the device's rows: the host oracle's
+    steps come back in their place and the ladder latches SUSPECT.
 
     A wedge abandons the group's chunks: the one in flight and a prefetched
     one are never fetched, and their references are dropped. The pooled
@@ -1315,14 +1423,16 @@ class DeviceDefense:
         self.health = health if health is not None else shared_device_health()
         self._shadow_seq = 0
         self.partition = partition_id
-        #: groups whose device result a shadow mismatch quarantined
-        #: (declined as ``device-shadow-mismatch``)
+        #: groups whose device result a shadow mismatch quarantined (the
+        #: host oracle's result returned instead)
         self.shadow_quarantined = 0
         #: groups declined (containment or a typed device-run decline)
         self.fallbacks = 0
         #: wall seconds spent in the shadow oracle
         self.shadow_seconds = 0.0
         self._host_tables_of: tuple | None = None
+        #: the last oracle run's final state (CPU tensors)
+        self._oracle_state: dict | None = None
 
     @property
     def shadow_sample_rate(self) -> float:
@@ -1332,39 +1442,39 @@ class DeviceDefense:
     def dispatch_timeout_ms(self) -> int:
         return self.health.cfg.dispatch_timeout_ms
 
-    def run(self, pg: _PendingGroup, state: dict, collect) -> GroupRun:
+    def run(self, pg: _DeviceRun, state: dict, collect) -> GroupRun:
+        """``run_group`` through the seam: dispatch, chunk loop and sampled
+        shadow check. A failed group is declined (its fetched rows
+        discarded); a finished one is noted clean on the ladder, with the
+        oracle's steps and final state if the shadow quarantined the
+        device's."""
         # shadow sampling decided BEFORE dispatch: only sampled groups pay
-        # the host copies of the initial arrays and of the fetched rows
+        # the host copies of the initial state and of the fetched rows
         pg.shadow = self._shadow_sampled()
         if pg.shadow:
-            # the oracle's start: the group's true initial state, copied
-            # before anything is dispatched
             pg.initial = {k: v.to("cpu", copy=True) for k, v in state.items()}
-        try:
-            chaos = _DEVICE_CHAOS
-            if chaos is not None:
-                chaos.dispatch_fault()
-            first = _dispatch(pg.dt, state, pg.chunk_steps, pg.config, collect)
-        except Exception as exc:  # noqa: BLE001 — containment: a device
-            # failure (chaos-injected or real) becomes a typed decline
-            self._contain_device_failure(pg, exc, where="dispatch")
+        first = self._begin_dispatch(
+            pg, lambda: _dispatch(pg.dt, state, pg.chunk_steps, pg.config, collect))
+        if pg.failed:
             return self._decline(pg, state)
-        try:
-            run = _complete_device_run(pg, first, collect,
-                                       lambda chunk, k: self._fetch_rows(pg, chunk, k))
-        except Exception as exc:  # noqa: BLE001 — containment: a mid-group
-            # fetch failure or watchdog-expired stall abandons the group
-            self._contain_device_failure(pg, exc, where="fetch")
+        run = self._contained(pg, "fetch", lambda: _complete_device_run(
+            pg, first, collect, lambda chunk, k: self._fetch_rows(pg, chunk, k),
+            pg.chunk_steps, pg.max_steps))
+        if run is None:
             return self._decline(pg, state)
-        steps = run.steps
-        if steps is not None and pg.shadow:
+        if run.steps is None:
+            return self._decline(pg, run.state)
+        steps, end = run.steps, run.state
+        if pg.shadow:
             steps = self._verify_steps(pg, steps)
-        if steps is None:
-            return self._decline(pg, state if pg.failed else run.state)
+            if steps is None:
+                return self._decline(pg, state)
+            if steps is not run.steps:
+                end = {k: v.to(state[k].device) for k, v in self._oracle_state.items()}
         self.health.note_group_ok()
-        return GroupRun(steps, run.state, run.chunks_run)
+        return GroupRun(steps, end, run.chunks_run)
 
-    def _decline(self, pg: _PendingGroup, state: dict) -> GroupRun:
+    def _decline(self, pg: _DeviceRun, state: dict) -> GroupRun:
         """A declined group: counted, and any chaos corruption it carried
         reported caught by containment (its rows are discarded)."""
         self.fallbacks += 1
@@ -1375,7 +1485,31 @@ class DeviceDefense:
             pg.corrupt_tokens = []
         return GroupRun(None, state, pg.chunks_run, pg.fail_reason)
 
-    def _fetch_rows(self, pg: _PendingGroup, chunk: _Chunk, chunk_index: int) -> np.ndarray:
+    def _contained(self, pg, where: str, fn):
+        """``fn()``, a device failure inside it contained (None). A device
+        failure is a runtime error: a CUDA or launch error, a watchdog
+        wedge, an injected chaos fault. A kernel library that does not
+        build, and an argument error (a program fault), propagate."""
+        try:
+            return fn()
+        except RuntimeError as exc:
+            if isinstance(exc, _NOT_DEVICE_FAULTS):
+                raise
+            self._contain_device_failure(pg, exc, where=where)
+            return None
+
+    def _begin_dispatch(self, pg, dispatch):
+        """The seam's dispatch half: the chaos plane's dispatch fault, then
+        ``dispatch()``, contained (``pg.failed`` tells)."""
+        def guarded():
+            chaos = _DEVICE_CHAOS
+            if chaos is not None:
+                chaos.dispatch_fault()
+            return dispatch()
+
+        return self._contained(pg, "dispatch", guarded)
+
+    def _fetch_rows(self, pg, chunk: _Chunk, chunk_index: int) -> np.ndarray:
         """Every fetched chunk passes through here before decode: the chaos
         seam (stalls, partial-chunk failures, result corruption) and the
         dispatch watchdog live here; shadow groups keep a copy of the rows."""
@@ -1406,15 +1540,20 @@ class DeviceDefense:
             pg.raw_rows.append(flat)
         return flat
 
-    def _contain_device_failure(self, pg: _PendingGroup, exc, where: str) -> None:
-        """A dispatch exception or a watchdog-expired stall declines the group
-        with a TYPED reason and the health ladder hears about it; ``_decline``
-        reports any chaos corruption riding the group caught (its rows are
-        discarded)."""
+    def _contain_device_failure(self, pg, exc, where: str) -> None:
+        """Containment: a dispatch exception or a watchdog-expired stall
+        abandons the group with a TYPED reason, the health ladder hears
+        about it, and any chaos-injected corruption riding the group is
+        reported caught (its rows are discarded)."""
         kind = ("device-wedged" if isinstance(exc, DeviceWedgedError)
                 else "device-dispatch-error")
         pg.failed = True
         pg.fail_reason = kind
+        chaos = _DEVICE_CHAOS
+        if chaos is not None and pg.corrupt_tokens:
+            for token in pg.corrupt_tokens:
+                chaos.note_caught(token, "contained")
+            pg.corrupt_tokens = []
         logger.warning("device failure contained at %s (%s): %r — group declined",
                        where, kind, exc)
         self.health.note_fault(kind, detail=f"{where}: {exc!r}"[:200])
@@ -1444,47 +1583,62 @@ class DeviceDefense:
             self._host_tables_of = (dt, host)
         return self._host_tables_of[1]
 
-    def _shadow_execute(self, pg: _PendingGroup):
+    def _oracle_start(self, pg: _DeviceRun) -> dict:
+        """The group's initial state on the CPU: the oracle's start."""
+        return pg.initial
+
+    def _oracle_chunking(self, pg: _DeviceRun) -> tuple[int, int]:
+        """(chunk_steps, max_steps) of the group's device run."""
+        return pg.chunk_steps, pg.max_steps
+
+    def _shadow_execute(self, pg):
         """Re-execute the group on the CPU with the plain ``run_collect``
-        from the host copies of its initial arrays, through the same chunk
-        loop and chunking but without the chaos and watchdog seam (the
-        oracle must not be faultable). Returns the oracle's rows per chunk;
-        raises when the oracle itself does not finish the group."""
+        from its initial state, through the same chunk loop and chunking
+        but without the chaos and watchdog seam (the oracle must not be
+        faultable). Returns (steps, rows per chunk); raises when the oracle
+        itself does not finish the group."""
         dt = self._host_tables(pg.dt)
-        oracle = _PendingGroup(dt, pg.config, pg.I, pg.T, pg.chunk_steps, pg.max_steps,
-                               pipeline_chunks=False)
+        chunk_steps, max_steps = self._oracle_chunking(pg)
+        oracle = _DeviceRun(dt, pg.config, pg.I, pg.T, chunk_steps, max_steps,
+                            pipeline_chunks=False)
         rows: list[np.ndarray] = []
 
         def fetch(chunk: _Chunk, k: int) -> np.ndarray:
             rows.append(fetch_rows(chunk))
             return rows[-1]
 
-        first = _dispatch(dt, pg.initial, pg.chunk_steps, pg.config, run_collect)
-        run = _complete_device_run(oracle, first, run_collect, fetch)
+        with _profiler_annotation("zeebe.kernel_chunk.shadow"):
+            first = _dispatch(dt, self._oracle_start(pg), chunk_steps, pg.config, run_collect)
+            run = _complete_device_run(oracle, first, run_collect, fetch, chunk_steps,
+                                       max_steps)
         if run.fail_reason is not None:
             raise RuntimeError(f"shadow oracle failed: {run.fail_reason}")
-        return rows
+        self._oracle_state = run.state
+        return run.steps, rows
 
-    def _verify_steps(self, pg: _PendingGroup, steps):
+    def _verify_steps(self, pg, steps):
         """Sampled shadow verification: the device's fetched rows against the
-        oracle's, byte for byte, before the steps are returned. On mismatch
-        the device result is quarantined: the group is declined as
-        ``device-shadow-mismatch`` and the ladder latches SUSPECT. Returns
-        the steps (None: decline)."""
+        oracle's, byte for byte, before anything of the group is used. On
+        mismatch the device result is quarantined: the oracle's steps are
+        returned instead, and the ladder latches SUSPECT. Returns the steps
+        to use (None: the oracle failed, abandon the group)."""
         health = self.health
         health.note_shadow_check()
         t0 = time.perf_counter()
         try:
-            shadow_rows = self._shadow_execute(pg)
-        except Exception as exc:  # noqa: BLE001 — oracle failure: decline
-            # the group rather than return an unverified device result
+            shadow_steps, shadow_rows = self._shadow_execute(pg)
+        except Exception as exc:  # noqa: BLE001 — oracle failure: abandon
+            # the group rather than use an unverified device result
             self._contain_device_failure(pg, exc, where="shadow")
             return None
-        self.shadow_seconds += time.perf_counter() - t0
+        pg.t_shadow = time.perf_counter() - t0
+        self.shadow_seconds += pg.t_shadow
         rows = pg.raw_rows
         match = (len(rows) == len(shadow_rows)
                  and all(np.array_equal(a, b) for a, b in zip(rows, shadow_rows)))
         if match:
+            if pg.canary:
+                health.note_canary(True)
             return steps
         chaos = _DEVICE_CHAOS
         if chaos is not None and pg.corrupt_tokens:
@@ -1495,99 +1649,20 @@ class DeviceDefense:
         health.note_shadow_mismatch(
             detail=f"I={pg.I} T={pg.T} deviceChunks={len(rows)} "
                    f"oracleChunks={len(shadow_rows)}")
+        if pg.canary:
+            health.note_canary(False, detail="shadow mismatch")
         logger.warning("shadow verification MISMATCH (I=%d T=%d): device result "
-                       "quarantined, group declined", pg.I, pg.T)
-        pg.failed = True
-        pg.fail_reason = "device-shadow-mismatch"
-        return None
+                       "quarantined, host oracle result used", pg.I, pg.T)
+        return shadow_steps
 
 
 def cascade_ops(tables: ProcessTables, inst: GroupInstance, steps: list[dict]) -> list:
-    """Trace one instance's route through the device steps.
-
-    Ops (logical token ids; initial tokens are 0..len(tokens)-1, flow
-    targets get ids in creation order):
-      ("arrive", l, elem)      task activated, token parks
-      ("done", l, elem)        parked task completes (job completed)
-      ("pass", l, elem)        full activate+complete pass
-      ("nomatch", l, elem)     exclusive gateway with no matching flow
-      ("flow", l, elem, fo, new_l)  flow slot fo taken; new_l == -1 when
-                               no token was placed (join arrival merged)
-      ("scopearr", l, elem, new_l)  sub-process entered, inner start token
-      ("miarr", l, elem)       multi-instance body activated
-      ("hostarr", l, elem)     token reached a host-escaped element
-      ("complete",)            the process instance completed
-    """
-    d = inst.definition
-    exe = tables.definitions[d]
-    ops: list = []
-    # live: [logical id, slot, elem_idx]
-    live = [[l, t.slot, t.elem_idx] for l, t in enumerate(inst.tokens)]
-    next_l = len(live)
-    # logical id → step index at which a host-escaped token "arrives"
-    host_arrive: dict[int, int] = {}
-    done_emitted = False
-    for si, ev in enumerate(steps):
-        if done_emitted or not live:
-            break
-        T = ev["elem"].shape[0]
-        additions: list = []
-        for tok in list(live):
-            l, s, e = tok
-            if l in host_arrive:
-                if host_arrive[l] == si:
-                    ops.append(("hostarr", l, e))
-                    del host_arrive[l]
-                    live.remove(tok)
-                continue
-            if ev["inst"][s] != inst.idx or ev["elem"][s] != e:
-                continue  # slot reused after this token died (stale entry)
-            if ev["task_arrive"][s]:
-                if tables.kernel_op[d, e] == K_SCOPE:
-                    # the inner start token's placement rides flow slot 0
-                    dest = int(ev["dest"][s, 0])
-                    nl = next_l
-                    next_l += 1
-                    start_idx = int(tables.scope_start[d, e])
-                    additions.append([nl, dest, start_idx])
-                    ops.append(("scopearr", l, e, nl))
-                    if tables.kernel_op[d, start_idx] == K_HOST:
-                        host_arrive[nl] = si + 1
-                elif tables.kernel_op[d, e] == K_MI:
-                    # spawned MI children are device occupancy only; their
-                    # records ride the sequential drain, so only the body
-                    # is traced
-                    ops.append(("miarr", l, e))
-                else:
-                    ops.append(("arrive", l, e))
-            elif ev["task_done"][s] or ev["full_pass"][s]:
-                ops.append(("done" if ev["task_done"][s] else "pass", l, e))
-                for fo in range(ev["take_mask"].shape[1]):
-                    if not ev["take_mask"][s, fo]:
-                        continue
-                    dest = int(ev["dest"][s, fo])
-                    if dest < T:
-                        fid = int(tables.out_flow_idx[d, e, fo])
-                        # fid < 0: synthetic link-jump edge
-                        target_idx = (int(tables.out_target[d, e, fo])
-                                      if fid < 0 else exe.flows[fid].target_idx)
-                        nl = next_l
-                        next_l += 1
-                        additions.append([nl, dest, target_idx])
-                        ops.append(("flow", l, e, fo, nl))
-                        if tables.kernel_op[d, target_idx] == K_HOST:
-                            host_arrive[nl] = si + 1
-                    else:
-                        ops.append(("flow", l, e, fo, -1))
-                live.remove(tok)
-            elif ev["no_match"][s]:
-                ops.append(("nomatch", l, e))
-                live.remove(tok)
-        live.extend(additions)
-        if ev["newly_done"][inst.idx] and not done_emitted:
-            ops.append(("complete",))
-            done_emitted = True
-    return ops
+    """Trace one instance's route through the device steps: the backend's
+    own ``_cascade_ops`` (its docstring lists the ops), over a group built
+    by ``build_group_arrays``."""
+    view = SimpleNamespace(idx=inst.idx, tokens=inst.tokens, info=SimpleNamespace(
+        index=inst.definition, exe=tables.definitions[inst.definition]))
+    return KernelBackend._cascade_ops(_tables_view(tables), view, steps)
 
 
 def _host(x) -> np.ndarray:
@@ -1784,3 +1859,2448 @@ def drive_groups_on_mesh(runner, partitions: list, chunk_steps: int = CHUNK_STEP
         if exc is not None:
             raise exc
     return results  # type: ignore[return-value]
+
+
+# ---------------------------------------------------------------------------
+# the backend: admission, dispatch and materialization
+
+
+# copied from the reference: _Token .. _Admitted
+@dataclass
+class _Token:
+    slot: int
+    elem_idx: int
+    key: int  # element instance key (-1 until minted at materialization)
+    value: dict  # the record value the ACTIVATE command carried
+    phase: int = _PHASE_AT
+    # follow-up index of this token's ACTIVATE command in the burst being
+    # materialized (-1 = predates the burst); host-escape cascades appended
+    # before it must drain before this token's processing emits (FIFO)
+    act_idx: int = -1
+
+
+@dataclass
+class _Inst:
+    idx: int  # row in the device batch
+    info: _DefInfo
+    new: bool  # created by this group (vs reconstructed)
+    pi_key: int = -1
+    meta: dict | None = None  # creation: resolved definition metadata
+    tokens: list[_Token] = field(default_factory=list)
+    join_counts: dict[int, int] = field(default_factory=dict)  # elem idx → arrivals
+    slots: dict[str, float] = field(default_factory=dict)  # condition variables
+    done_emitted: bool = False
+    # every process-instance key this device instance spans (self + call-
+    # activity child frames + ancestors); the group conflict set must cover
+    # them all so one family never resumes twice in one group
+    family_pis: list[int] = field(default_factory=list)
+    # K_MI bodies: body row → children left to spawn on device (admission-
+    # predicted cardinality for unspawned bodies; reconstruction remainder
+    # for parked sequential bodies; 0 for fully-spawned parallel bodies)
+    mi_left: dict = field(default_factory=dict)
+    # predicted cardinality per body row (the decoder's spawn-count oracle
+    # is the sequential delegation itself; this sizes the token pool)
+    mi_cards: dict = field(default_factory=dict)
+
+
+@dataclass
+class _Admitted:
+    cmd: Any  # LoggedRecord
+    inst: _Inst
+    resume_token: _Token | None = None  # job complete: the PHASE_DONE token
+    kind: str = "c"  # "c" creation | "j" job complete
+    # instance-scoped documents the head processors will read — the burst
+    # template's context fingerprint is computed over these (role-normalized)
+    # at ADMISSION time (the docs are guaranteed unmutated there; holding
+    # references past admission would race the group's own state writes),
+    # then released
+    fp_docs: list | None = None
+    # False → this command must not ride a burst template (e.g. it touches
+    # engine.await_results, which lives outside the captured state store)
+    templatable: bool = True
+    # clock-derived document fields (dueDate/deadline) extracted by the
+    # fingerprint walk, in canonical order — resolved per command for the
+    # template's ("fp", i) roles
+    fp_values: list | None = None
+    # the role-normalized byte image (template cache key component) and the
+    # exact set of large ints the fingerprint pinned (the sound
+    # Roles.allowed set) — both computed at admission
+    fp_bytes: bytes | None = None
+    fp_pinned: set | None = None
+    # minted keys of parked wait states (timer keys), in reconstruction
+    # order — role ("wait", j); they appear in cancel/trigger bursts but not
+    # in any admission doc, so they need their own role kind
+    wait_keys: list | None = None
+# end of the copy
+
+
+# copied from the reference: _PendingGroup .. _PendingGroup
+@dataclass
+class _PendingGroup:
+    """One admitted command group with its device run in flight — the
+    double-buffered unit of the pipelined execution path (stream/processor
+    .py process_available_batch): while this group's first chunk computes on
+    the device, the processor runs the PREVIOUS group's deferred host work.
+    Carries per-stage wall times for the stream_processor_pipeline_* stage
+    histograms."""
+
+    admitted: list
+    failed: bool = False
+    # typed catalog reason when the device run declines (geometry bounds,
+    # non-quiescence, pool overflow, mesh errors) — finish_group feeds it
+    # into the consolidated PathAccounting exactly once per failed group
+    fail_reason: str | None = None
+    # device chunks actually fetched (the kernel_wave flight event's
+    # chunk-count field); mesh groups report 0 (the runner owns chunking)
+    chunks_run: int = 0
+    mesh: bool = False
+    arrays: dict | None = None
+    I: int = 0
+    T: int = 0
+    tables: Any = None
+    config: Any = None
+    dt: Any = None
+    dev: Any = None
+    bucket: Any = None
+    run: Any = None  # (carry state, packed events) of the in-flight chunk
+    # chunk k+1 prefetch is a win only on a REAL accelerator (device compute
+    # overlaps host decode for free); on a host XLA backend the prefetched
+    # chunk's threads compete with the decoding host thread for the same
+    # cores (measured: ten_tasks regression on a 2-vCPU box)
+    pipeline_chunks: bool = False
+    # device-fault defense: shadow=True keeps the fetched result
+    # rows for byte-for-byte comparison against the host oracle before the
+    # group transaction commits; canary marks a quarantine re-proving
+    # dispatch (forced shadow); corrupt_tokens are chaos-ledger sequences
+    # the backend must report caught (shadow or containment)
+    shadow: bool = False
+    canary: bool = False
+    raw_rows: list = field(default_factory=list)
+    corrupt_tokens: list = field(default_factory=list)
+    # stage wall times (seconds), observed by the stream processor
+    t_admit: float = 0.0
+    device_elapsed: float = 0.0
+    t_materialize: float = 0.0
+    t_shadow: float = 0.0
+# end of the copy
+
+
+class KernelBackend(DeviceDefense):
+    """Admits groups of commands, runs the automaton kernel, materializes the
+    sequential-equivalent record stream. One instance per partition, its
+    groups on one device: CUDA unless ``device`` says otherwise (``"cpu"``
+    runs the plain PyTorch version). The device-fault seam is its base
+    class; the members below the constructor that the reference has are
+    copies but for the device members (``_start_kernel``,
+    ``_await_kernel``, ``_group_state``, ``_dispatch_first_chunk``,
+    ``_complete_device_run``)."""
+
+    def __init__(self, engine, max_group: int = 256, max_steps: int = 4096,
+                 chunk_steps: int = 8, use_templates: bool = True,
+                 audit_templates: bool = False,
+                 max_commands_in_batch: int = 100,
+                 mesh_runner=None, router=None, device=None) -> None:
+        if router is not None:
+            # the reference's link-aware router (utils/device_link) chooses
+            # host or card per shape bucket; the port has no router yet
+            raise NotImplementedError("a link-aware backend router needs "
+                                      "utils.device_link: ROADMAP A4")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # the kernel library is built and loaded here, so a card whose
+            # kernels do not build fails the backend's construction rather
+            # than declining every group to the host
+            kernels.load()
+        # the per-broker health ladder is shared across partitions (the
+        # device is a process resource); the sampling stream is seeded by
+        # the partition
+        super().__init__(engine.state.partition_id, shared_device_health())
+        self.engine = engine
+        self.registry = KernelRegistry()
+        self.max_group = max_group
+        self.max_steps = max_steps
+        self.chunk_steps = chunk_steps
+        # shared MeshKernelRunner (parallel/mesh_runner.py): when set, this
+        # partition's groups run as shards of ONE mesh dispatch, coalescing
+        # with other partitions' concurrently submitted groups
+        self.mesh_runner = mesh_runner
+        # must match the stream processor's batch budget: the host-escape
+        # drain accounts commands exactly like the sequential batch loop
+        self.max_commands_in_batch = max_commands_in_batch
+        # burst templates (engine/burst_templates.py): replay a command's
+        # whole record burst by patching a captured byte template. audit mode
+        # (tests) shadows every template hit with the slow path and asserts
+        # byte/state/response equality instead of serving the fast result.
+        self.use_templates = use_templates
+        self.audit_templates = audit_templates
+        self._templates: dict = {}
+        self._template_cache_limit = 1024
+        # observability (``fallbacks`` and ``shadow_quarantined`` are the
+        # seam's)
+        self.groups_processed = 0
+        self.commands_processed = 0
+        # consolidated path accounting: one reason catalog and one counter
+        # home for every kernel-vs-host routing decision; fallback_reasons
+        # aliases its Counter (reason → count)
+        self.accounting = PathAccounting(engine.state.partition_id)
+        self.fallback_reasons = self.accounting.reasons
+        from zeebe_tpu_torch.observability.tracer import get_tracer
+
+        self._tracer = get_tracer()
+        self._partition_id = engine.state.partition_id
+        self.template_hits = 0
+        self.template_misses = 0
+        self.template_audits = 0
+        self.template_audit_skips = 0
+        # compile seam (observability/profiler.py): (bucket, device) pairs
+        # whose first dispatch — the first launch, to its completion — was
+        # already timed into the compile telemetry
+        self._compiles_seen: set = set()
+
+    # copied from the reference: is_candidate .. _definition_of
+    def is_candidate(self, record) -> bool:
+        return (record.value_type, int(record.intent)) in _CANDIDATE_COMMANDS
+
+    def note_sequential_head(self, record) -> None:
+        """The processor's batch scan found a non-candidate command at the
+        HEAD of the pending log (a deployment, a message publish, …):
+        ordinary sequential traffic, counted BY KIND so the bench fallback
+        accounting separates it from kernel failures and from admission
+        regressions: the bare "head-not-admittable" count hid
+        what actually fell back — and end-of-log probes inflated it)."""
+        self.fallbacks += 1
+        self.accounting.note_host(
+            f"head-sequential:{record.value_type.name}.{record.intent.name}",
+            self._definition_of(record),
+        )
+
+    def _definition_of(self, record) -> str:
+        """Best-effort bpmnProcessId attribution for a host-routed head
+        command (the per-definition coverage split). Creations carry the id
+        on the value; job completes resolve it through the job's state entry
+        (we are inside the partition's open transaction on every caller
+        path); everything else is unattributed ('-'). Attribution must never
+        take routing down."""
+        try:
+            value = record.value
+            definition = value.get("bpmnProcessId") if isinstance(value, dict) else None
+            if definition:
+                return definition
+            if (record.value_type, int(record.intent)) == (
+                    ValueType.JOB, int(JobIntent.COMPLETE)):
+                job = self.engine.state.jobs.get(record.key)
+                if job is not None and job.get("bpmnProcessId"):
+                    return job["bpmnProcessId"]
+        except Exception:  # noqa: BLE001 — attribution is best-effort
+            pass
+        return "-"
+    # end of the copy
+
+    # copied from the reference: _admit .. _build_group_arrays
+    def _admit(self, cmd, instances: dict[int, _Inst],
+               admitted_pis: set[int], wave: dict) -> _Admitted | None:
+        record = cmd.record
+        kind = (record.value_type, int(record.intent))
+        if kind == (ValueType.PROCESS_INSTANCE_CREATION, int(ProcessInstanceCreationIntent.CREATE)):
+            adm = self._admit_creation(cmd, instances, wave)
+        elif kind == (ValueType.JOB, int(JobIntent.COMPLETE)):
+            adm = self._admit_job_complete(cmd, instances, admitted_pis, wave)
+        elif kind == (ValueType.TIMER, int(TimerIntent.TRIGGER)):
+            adm = self._admit_timer_trigger(cmd, instances, admitted_pis, wave)
+        elif kind == (ValueType.PROCESS_MESSAGE_SUBSCRIPTION,
+                      int(ProcessMessageSubscriptionIntent.CORRELATE)):
+            adm = self._admit_message_correlate(cmd, instances, admitted_pis,
+                                                wave)
+        else:
+            return None
+        if adm is not None and self.use_templates and adm.templatable:
+            # fingerprint NOW, over the live documents: nothing has mutated
+            # them yet (materialization of earlier group members runs later
+            # and only touches other instances), and doing it here lets the
+            # admission docs be referenced instead of defensively copied
+            adm.fp_bytes, adm.fp_values, adm.fp_pinned = self._fingerprint(adm)
+            adm.fp_docs = None
+        return adm
+
+    # wave-context sentinel: distinguishes a memoized None from a cache miss
+    _WAVE_MISS = object()
+
+    def _wave_def_info(self, wave: dict, def_key: int) -> "_DefInfo | None":
+        """Per-wave memo of registry lookup + segment freshness — the
+        vectorized admission prevalidation: a wave of commands
+        against one definition pays the eligibility lookup and the inlined-
+        segment staleness probe once, not once per head. None is memoized
+        too (a stale-segment definition declines for the whole wave; the
+        refresh `_segments_fresh` triggers readmits it next wave)."""
+        hit = wave.get(def_key, self._WAVE_MISS)
+        if hit is not self._WAVE_MISS:
+            return hit
+        state = self.engine.state
+        info = self.registry.lookup(def_key, state.processes.executable(def_key),
+                                    processes=state.processes)
+        if info is not None and not self._segments_fresh(info):
+            info = None
+        wave[def_key] = info
+        return info
+
+    def _condition_slots_cached(self, wave: dict, info: "_DefInfo",
+                                merged: dict) -> dict[str, tuple] | None:
+        """``_condition_slots`` with a per-wave memo keyed by the condition
+        variables' VALUES: instances that agree on every device-read
+        variable (the common wave shape — identical creation variables, or
+        resumes whose root scopes converged) share one slot-plane
+        computation. Unhashable values fall through to the direct path."""
+        names = self.registry.tables.cond_vars_by_def[info.index]
+        if not names:
+            return {}
+        try:
+            key = ("slots", info.index,
+                   tuple(merged.get(n) for n in names))
+            hit = wave.get(key, self._WAVE_MISS)
+        except TypeError:
+            return self._condition_slots(info, merged)
+        if hit is not self._WAVE_MISS:
+            return hit
+        slots = self._condition_slots(info, merged)
+        wave[key] = slots
+        return slots
+
+    def _admit_creation(self, cmd, instances, wave: dict) -> _Admitted | None:
+        state = self.engine.state
+        value = cmd.record.value
+        if value.get("startInstructions"):
+            return None
+        if value.get("startElementId"):
+            # message/timer-start creations activate an explicit start element
+            # — the kernel's creation materializer always enters through the
+            # none start, so these stay sequential
+            return None
+        from zeebe_tpu_torch.protocol import DEFAULT_TENANT
+
+        if value.get("tenantId", DEFAULT_TENANT) != DEFAULT_TENANT:
+            # non-default tenants ride the sequential path: the kernel's value
+            # builders emit the default tenant's record shape
+            return None
+        bpmn_process_id = value.get("bpmnProcessId", "")
+        definition_key = value.get("processDefinitionKey", -1)
+        version = value.get("version", -1)
+        if definition_key > 0:
+            meta = state.processes.get_by_key(definition_key)
+        elif version > 0:
+            key = state.processes.get_key_by_id_version(bpmn_process_id, version)
+            meta = None if key is None else state.processes.get_by_key(key)
+        else:
+            meta = wave.get(("latest", bpmn_process_id), self._WAVE_MISS)
+            if meta is self._WAVE_MISS:
+                meta = state.processes.get_latest_by_id(bpmn_process_id)
+                wave[("latest", bpmn_process_id)] = meta
+        if meta is None or meta.get("deleted"):
+            return None  # sequential path writes the NOT_FOUND rejection
+        def_key = meta["processDefinitionKey"]
+        info = self._wave_def_info(wave, def_key)
+        if info is None:
+            return None
+        variables = value.get("variables") or {}
+        slots = self._condition_slots_cached(wave, info, variables)
+        if slots is None:
+            # a condition could read a variable whose runtime type the device
+            # slot kind cannot represent: host and device would disagree
+            return None
+        if info.root_esp_start_idxs and not self._esp_exprs_admit(
+                info, variables):
+            return None  # sequential path raises the proper incident
+        mi_cards: dict[int, int] = {}
+        if info.mi_inner:
+            needed = info.mi_reach.get(-1, ())
+            if needed:
+                cards = self._predict_mi_cards(info, needed, variables)
+                if cards is None:
+                    return None
+                mi_cards = cards
+        inst = _Inst(idx=len(instances), info=info, new=True, meta=meta,
+                     slots=slots, mi_left=dict(mi_cards), mi_cards=mi_cards)
+        templatable = not (value.get("awaitResult") and cmd.record.request_id >= 0)
+        return _Admitted(cmd=cmd, inst=inst, kind="c",
+                         fp_docs=[value, meta], templatable=templatable)
+
+    def _predict_mi_cards(self, info: _DefInfo, needed,
+                          merged: dict) -> dict[int, int] | None:
+        """Cardinality of each needed K_MI body's input collection, evaluated
+        over the admission-time variable view. Eligibility guarantees no
+        other writer can change the collection before the body activates
+        mid-burst, so this equals what the sequential delegation will read.
+        None = a needed collection is missing/invalid/empty/too large — the
+        command declines to the sequential path (which raises the proper
+        incident or runs the large fan-out chunked)."""
+        cards: dict[int, int] = {}
+        for row in needed:
+            mi = info.exe.elements[row].multi_instance
+            try:
+                items = mi.input_collection.evaluate(merged, lambda: 0)
+            except Exception:  # noqa: BLE001 — any eval failure → sequential
+                return None
+            if not isinstance(items, list):
+                return None
+            if not items or len(items) > _MI_MAX_CARD:
+                # empty bodies complete during activation (a different burst
+                # shape than park-and-drain); big fan-outs ride chunking
+                return None
+            cards[row] = len(items)
+        return cards
+
+    def _segments_fresh(self, info: _DefInfo) -> bool:
+        """Inlined call segments bind the latest called version at compile
+        time; activation resolves latest at ACTIVATION time (reference:
+        CallActivityProcessor) — a newer deploy of a called id makes the
+        inlining stale, so such commands take the sequential path until the
+        registry recompiles."""
+        if not info.segments:
+            return True
+        processes = self.engine.state.processes
+        for seg in info.segments:
+            meta = processes.get_latest_by_id(seg.child_process_id)
+            if meta is None or meta["processDefinitionKey"] != seg.child_def_key:
+                # re-inline against the new latest so FUTURE commands ride
+                # the kernel again; the current command still declines (its
+                # caller already resolved the stale info)
+                self.registry.refresh_segments(
+                    info.key, self.engine.state.processes.executable(info.key),
+                    processes)
+                return False
+        return True
+
+    def _reconstruct(self, pi_key: int, info: _DefInfo, resume_key: int,
+                     root=None):
+        """Rebuild a running instance's device tokens from element-instance
+        state. Every live element instance must be parked in a kernel wait
+        state (task on a job, catch on a timer/subscription, or a sub-process
+        scope whose descendants are parked) — anything else (mid-transition,
+        incident, scope drain in flight) is not reconstructable. Returns
+        (tokens, resume_token, root, wait_docs, scope_keys, join_counts) or
+        None; wait_docs are the parked wait-state records (for the template
+        fingerprint), scope_keys maps scope element idx → instance key
+        (0 → the process instance), join_counts maps join gateway element
+        idx → unconsumed arrivals."""
+        state = self.engine.state
+        if root is None:
+            root = state.element_instances.get(pi_key)
+        from zeebe_tpu_torch.engine.engine_state import EI_ACTIVATED
+
+        if root is None or root["state"] != EI_ACTIVATED:
+            return None
+        exe = info.exe
+        tokens: list[_Token] = []
+        resume: _Token | None = None
+        wait_docs: list = []
+        wait_keys: list[int] = []
+        if not self._esp_waits_ok(info.root_esp_waits, pi_key, wait_docs,
+                                  wait_keys):
+            return None
+        family: list[int] = []  # call-child process instance keys
+        mi_parked: dict[int, int | None] = {}  # K_MI body row → live inner lc
+        # elem idx of a scope (0 = process root) → its instance key: join
+        # counters and sub-process drain checks key off the scope instance
+        scope_keys: dict[int, int] = {0: pi_key}
+        # depth-first walk of the element-instance tree: K_SCOPE children are
+        # parked tokens whose own children are walked recursively. Entries
+        # carry the call segment whose inlined region the instance lives in
+        # (None = the caller's own rows); ids resolve through the segment's
+        # child executable, offset into synthetic rows.
+        pending_walk = [
+            (k, None) for k in sorted(state.element_instances.children_keys(pi_key))
+        ]
+        for child_key, seg in pending_walk:
+            child = state.element_instances.get(child_key)
+            if child is None or child["state"] != EI_ACTIVATED:
+                return None
+            elem_id = child["value"].get("elementId", "")
+            id_map = exe.by_id if seg is None else seg.child_exe.by_id
+            if elem_id not in id_map:
+                return None
+            row = id_map[elem_id] + (0 if seg is None else seg.offset)
+            el = exe.elements[row]
+            if (el.multi_instance is not None and el.child_start_idx >= 0
+                    and child["value"].get("bpmnElementType")
+                    != BpmnElementType.MULTI_INSTANCE_BODY.name):
+                # an MI element id names BOTH the body and its inner
+                # instances; the inner rides the synthetic inner row
+                row = info.mi_inner[row]
+                el = exe.elements[row]
+            op = self.registry.tables.kernel_op[info.index, row]
+            if op == K_MI:
+                if child.get("miActivationIndex") is not None:
+                    return None  # chunked fan-out: sequential path owns it
+                lc = None
+                for k in state.element_instances.children_keys(child_key):
+                    inner = state.element_instances.get(k)
+                    if inner is not None:
+                        lc = max(lc or 0, inner["value"].get("loopCounter", 0))
+                mi_parked[row] = lc  # None = no live inner (drain mid-flight)
+                scope_keys[row] = child_key
+                pending_walk.extend(
+                    (k, seg)
+                    for k in sorted(state.element_instances.children_keys(child_key))
+                )
+            elif op == K_SCOPE:
+                call_seg = info.call_segment(row)
+                if call_seg is not None:
+                    # call activity frame: descend into the called child
+                    # instance through the back-link; the child ROOT walks as
+                    # the placeholder row (its elementId — the process id —
+                    # maps to the segment's row 0)
+                    child_pi = child.get("calledChildInstanceKey", -1)
+                    child_root = state.element_instances.get(child_pi)
+                    if child_root is None:
+                        return None
+                    if (child_root["value"].get("processDefinitionKey")
+                            != call_seg.child_def_key):
+                        return None  # instance bound an older called version
+                    family.append(child_pi)
+                    scope_keys[row] = child_key
+                    pending_walk.append((child_pi, call_seg))
+                else:
+                    esp_expected = info.scope_esp_waits.get(row)
+                    if esp_expected is not None and not self._esp_waits_ok(
+                            esp_expected, child_key, wait_docs, wait_keys):
+                        return None  # an ESP trigger owns this call frame
+                    scope_keys[row] = child_key
+                    pending_walk.extend(
+                        (k, seg)
+                        for k in sorted(state.element_instances.children_keys(child_key))
+                    )
+            elif op == K_TASK:
+                if child.get("jobKey", -1) < 0:
+                    return None
+                # boundary subscriptions must be intact: a missing timer/sub
+                # means a trigger is mid-flight (its internal TERMINATE/
+                # ACTIVATE commands own this instance now) — decline so the
+                # sequential path resolves the race
+                if not self._collect_wait_states(info, el.idx, child_key,
+                                                 wait_docs, wait_keys):
+                    return None
+            elif op == K_CATCH:
+                if el.element_type == BpmnElementType.EVENT_BASED_GATEWAY:
+                    # every succeeding catch must have its wait state open on
+                    # the gateway instance; anything less means a trigger is
+                    # mid-flight (its COMPLETE_ELEMENT owns this instance)
+                    if not self._collect_wait_states(info, el.idx, child_key,
+                                                     wait_docs, wait_keys):
+                        return None
+                elif el.timer_duration is not None:
+                    timers = state.timers.timers_for_element_instance(child_key)
+                    if not timers:
+                        return None  # incident-parked or already fired
+                    wait_docs.extend(t for _k, t in timers)
+                    wait_keys.extend(k for k, _t in timers)
+                elif el.signal_name is not None:
+                    subs = state.signal_subscriptions.subscriptions_of(child_key)
+                    if not subs:
+                        return None  # broadcast mid-flight owns the instance
+                    wait_docs.extend(subs)
+                else:
+                    sub = state.process_message_subscriptions.get(
+                        child_key, el.message_name
+                    )
+                    if sub is None:
+                        return None
+                    wait_docs.append(sub)
+            else:
+                return None
+            tok = _Token(slot=-1, elem_idx=el.idx, key=child_key,
+                         value=dict(child["value"]), phase=_PHASE_WAIT)
+            if child_key == resume_key:
+                tok.phase = _PHASE_DONE
+                resume = tok
+            tokens.append(tok)
+        if resume is None:
+            return None
+        join_counts = self._join_counts(info, scope_keys)
+        # drain integrity: a scope instance with no parked descendant token
+        # and no pending join arrival inside has its COMPLETE_ELEMENT command
+        # in flight — the device would re-complete it (duplicate records), so
+        # the sequential path must finish that window
+        for scope_idx in scope_keys:
+            if scope_idx == 0:
+                continue
+            if any(self._inside(exe, t.elem_idx, scope_idx) for t in tokens):
+                continue
+            if any(join_counts.get(j) and self._inside(exe, j, scope_idx)
+                   for j in info.join_idxs):
+                continue
+            return None
+        return (tokens, resume, root, wait_docs, wait_keys, scope_keys,
+                join_counts, family, mi_parked)
+
+    def _esp_exprs_admit(self, info: _DefInfo, variables: dict) -> bool:
+        """Pre-validate root event-sub-process start expressions over the
+        creation variables (the same values _open_scope_event_subscriptions
+        will read from the seeded root scope) — THE SAME shared helper the
+        sequential open uses, so admission and emission cannot diverge; an
+        eval failure takes the sequential path for the engine's own
+        incident shape."""
+        return self.engine.bpmn.prevalidate_scope_event_subscriptions(
+            info.root_esp_start_idxs, info.exe, variables) is None
+
+    def _esp_waits_ok(self, expected: tuple, instance_key: int,
+                      wait_docs: list, wait_keys: list) -> bool:
+        """A scope's ESP start subscriptions must ALL be open on its
+        instance — anything less means a trigger owns the instance right now
+        (mirror of _collect_wait_states for scope instances). Applies to
+        the process root (root_esp_waits) and to inlined call frames' child
+        roots (scope_esp_waits)."""
+        expected_timers, expected_subs, expected_signals = expected
+        if not (expected_timers or expected_subs or expected_signals):
+            return True
+        state = self.engine.state
+        timers = state.timers.timers_for_element_instance(instance_key)
+        subs = state.process_message_subscriptions.subscriptions_of(instance_key)
+        signals = state.signal_subscriptions.subscriptions_of(instance_key)
+        if (len(timers) != expected_timers or len(subs) != expected_subs
+                or len(signals) != expected_signals):
+            return False
+        wait_docs.extend(t for _k, t in timers)
+        wait_keys.extend(k for k, _t in timers)
+        wait_docs.extend(subs)
+        wait_docs.extend(signals)
+        return True
+
+    def _collect_wait_states(self, info: _DefInfo, el_idx: int, child_key: int,
+                             wait_docs: list, wait_keys: list) -> bool:
+        """Verify the expected wait states (boundary subscriptions of a task,
+        or an event-based gateway's per-target subscriptions) are all open on
+        ``child_key``, appending their records to ``wait_docs`` and the
+        timers' minted keys to ``wait_keys``. False means a trigger is
+        mid-flight and the instance is not reconstructable."""
+        expected_timers, expected_subs, expected_signals = (
+            info.boundary_waits.get(el_idx, (0, 0, 0)))
+        if not (expected_timers or expected_subs or expected_signals):
+            return True
+        state = self.engine.state
+        timers = state.timers.timers_for_element_instance(child_key)
+        subs = state.process_message_subscriptions.subscriptions_of(child_key)
+        signals = state.signal_subscriptions.subscriptions_of(child_key)
+        if (len(timers) != expected_timers or len(subs) != expected_subs
+                or len(signals) != expected_signals):
+            return False
+        wait_docs.extend(t for _k, t in timers)
+        wait_keys.extend(k for k, _t in timers)
+        wait_docs.extend(subs)
+        wait_docs.extend(signals)
+        return True
+
+    @staticmethod
+    def _inside(exe: ExecutableProcess, elem_idx: int, scope_idx: int) -> bool:
+        """True when elem_idx lies strictly inside scope_idx's scope chain."""
+        anc = exe.elements[elem_idx].parent_idx
+        while anc > 0:
+            if anc == scope_idx:
+                return True
+            anc = exe.elements[anc].parent_idx
+        return False
+
+    def _join_counts(self, info: _DefInfo, scope_keys: dict[int, int]) -> dict[int, int]:
+        state = self.engine.state
+        exe = info.exe
+        join_counts: dict[int, int] = {}
+        for jidx in info.join_idxs:
+            # NUMBER_OF_TAKEN_SEQUENCE_FLOWS counters key off the gateway's
+            # flow-scope INSTANCE (process root or sub-process instance)
+            scope_key = scope_keys.get(exe.elements[jidx].parent_idx)
+            if scope_key is None:
+                continue  # scope not instantiated → no arrivals
+            # the state's counters were written by the sequential appliers,
+            # which resolve elements/flows through the CHILD executable for
+            # call-frame records — translate inlined synthetic rows back to
+            # the segment-local index space before reading
+            seg = info.segment_of_row(jidx)
+            d_elem = 0 if seg is None else seg.offset
+            d_flow = 0 if seg is None else seg.flow_offset
+            total = sum(
+                state.element_instances.taken_flow_count(
+                    scope_key, jidx - d_elem, f.idx - d_flow)
+                for f in exe.flows
+                if f.target_idx == jidx
+            )
+            if total:
+                join_counts[jidx] = total
+        return join_counts
+
+    def _condition_slots(self, info: _DefInfo, merged: dict) -> dict[str, tuple] | None:
+        """Prefetch the condition variables into device-slot key planes:
+        numeric slots carry the float64 order key, string slots the interned
+        id (the host document store ↔ device slot split, SURVEY §7(c)).
+        None = this instance cannot ride the kernel (type mismatch or
+        order-unsafe unknown string would diverge from host FEEL)."""
+        from zeebe_tpu_torch.ops.tables import f64_key_planes
+
+        tables = self.registry.tables
+        slots: dict[str, tuple] = {}
+        # variables read by THIS definition's device-compiled conditions in
+        # the SHARED lowering (a shared-set SlotMap clash may have downgraded
+        # a gateway to K_HOST — its variables then need no prefetch and must
+        # not gate admission)
+        for name in tables.cond_vars_by_def[info.index]:
+            v = merged.get(name)
+            if tables.slot_map.kinds.get(name) == "str":
+                if not isinstance(v, str):
+                    return None
+                key_hi, _known = tables.interner.order_key_of(v)
+                # unknown strings get odd insertion-rank keys — exact
+                # against every literal, and device programs never compare
+                # two string slots (compile_condition types "str" only
+                # opposite a literal), so collisions between two unknown
+                # keys are unreachable
+                slots[name] = (key_hi, 0)
+                continue
+            if not _is_numeric(v):
+                return None
+            if type(v) is int and not _f64_exact(v):
+                # host FEEL compares Python ints exactly; an int beyond 2^53
+                # would round into its float64 neighbor's order key and the
+                # device could diverge (e.g. EQ against the neighbor)
+                return None
+            value = float(v)
+            if value != value:  # NaN has no order key
+                return None
+            slots[name] = f64_key_planes(value)
+        return slots
+
+    def _admit_resume(self, cmd, instances, admitted_pis: set[int],
+                      pi_key: int, resume_key: int,
+                      kind: str, head_docs: list, extra_variables: dict | None,
+                      require_op: int, wave: dict) -> _Admitted | None:
+        """Shared admission for resume commands (job complete, timer trigger,
+        message correlate). A command whose instance is a call-activity child
+        first tries the TOP ancestor instance — when the caller's definition
+        inlines the child, the resume reconstructs the WHOLE family as one
+        device instance and the call return executes on the device; otherwise
+        it falls back to the child-frame instance (the child's own tables,
+        with a sequential continuation into the parent)."""
+        state = self.engine.state
+        root_meta = state.element_instances.get(pi_key)
+        if root_meta is None:
+            return None
+        top_pi, top_meta, ancestors = pi_key, root_meta, []
+        for _ in range(_INLINE_MAX_DEPTH + 1):
+            ppi = top_meta["value"].get("parentProcessInstanceKey", -1)
+            if ppi < 0:
+                break
+            m = state.element_instances.get(ppi)
+            if m is None:
+                break
+            top_pi, top_meta = ppi, m
+            ancestors.append(ppi)
+        if top_pi != pi_key:
+            adm = self._admit_resume_at(
+                cmd, instances, admitted_pis, top_pi, top_meta, resume_key,
+                kind, head_docs, extra_variables, require_op, wave,
+                require_segments=True)
+            if adm is not None:
+                return adm
+        return self._admit_resume_at(
+            cmd, instances, admitted_pis, pi_key, root_meta, resume_key,
+            kind, head_docs, extra_variables, require_op, wave,
+            extra_family=ancestors)
+
+    def _admit_resume_at(self, cmd, instances, admitted_pis: set[int],
+                         pi_key: int, root_meta, resume_key: int,
+                         kind: str, head_docs: list,
+                         extra_variables: dict | None, require_op: int,
+                         wave: dict,
+                         require_segments: bool = False,
+                         extra_family: list | None = None,
+                         ) -> _Admitted | None:
+        state = self.engine.state
+        if pi_key in admitted_pis:
+            return None  # same-instance conflict: next group
+        if "tenantId" in root_meta["value"]:
+            # non-default-tenant instances stay on the sequential path end to
+            # end (the kernel's value builders emit default-tenant shapes)
+            return None
+        def_key = root_meta["value"].get("processDefinitionKey", -1)
+        info = self._wave_def_info(wave, def_key)
+        if info is None:
+            return None
+        if require_segments and not info.segments:
+            # the hop to the top ancestor only pays off when the caller
+            # inlines its call activities — otherwise the call element is a
+            # host escape and reconstruction would decline at it anyway
+            return None
+        rebuilt = self._reconstruct(pi_key, info, resume_key, root_meta)
+        if rebuilt is None:
+            return None
+        (tokens, resume, root, wait_docs, wait_keys, scope_keys,
+         join_counts, family, mi_parked) = rebuilt
+        family = [pi_key, *family, *(extra_family or ())]
+        if any(p in admitted_pis for p in family):
+            return None  # a family member is already resumed in this group
+        resume_el = info.exe.elements[resume.elem_idx]
+        has_cond_slots = bool(
+            self.registry.tables.cond_vars_by_def[info.index])
+        if extra_variables:
+            if kind == "j" and resume_el.outputs:
+                # the sequential job-complete merges ALL completion variables
+                # into the element's LOCAL scope when the element has output
+                # mappings (processors.py merge_local) — they die with the
+                # element and must never reach the root condition slots
+                extra_variables = None
+            elif has_cond_slots:
+                # default propagation: each variable lands on the nearest
+                # scope that already holds it locally, else the root. A
+                # mid-chain local (input-mapped element scope, or a
+                # sub-process scope written by an inner output mapping)
+                # would absorb the variable where the device's root-slot
+                # prefetch cannot see it — decline those resumes. With no
+                # device-compiled conditions (always the case for inlined
+                # call definitions) there are no slots to invalidate.
+                for name in extra_variables:
+                    scope = state.variables.find_scope_with(resume_key, name)
+                    if scope is not None and scope != pi_key:
+                        return None
+        if self.registry.tables.kernel_op[info.index, resume.elem_idx] != require_op:
+            return None
+        merged = state.variables.collect(pi_key)
+        merged.update(extra_variables or {})
+        slots = self._condition_slots_cached(wave, info, merged)
+        if slots is None:
+            return None
+        mi_left: dict[int, int] = {}
+        mi_cards: dict[int, int] = {}
+        if info.mi_inner:
+            tables = self.registry.tables
+            seq_rows = {
+                row for row in info.mi_inner
+                if tables.mi_sequential[info.index, row]
+            }
+            # cards are needed for burst-reachable unspawned bodies AND for
+            # parked sequential bodies (the respawn remainder); parallel
+            # parked bodies are fully spawned (mi_left 0, no card needed)
+            needed = set(info.mi_reach.get(resume.elem_idx, ()))
+            needed |= {r for r in mi_parked if r in seq_rows}
+            if needed:
+                # a collection variable shadowed by ANY live scope/token
+                # local would make the root-merged prediction diverge from
+                # the sequential collect(body) — decline those
+                local_names: set[str] = set()
+                for t in tokens:
+                    local_names.update(state.variables.locals_of(t.key))
+                for _idx, k in scope_keys.items():
+                    if k != pi_key:
+                        local_names.update(state.variables.locals_of(k))
+                for row in needed:
+                    ast = info.exe.elements[row].multi_instance.input_collection.ast
+                    if isinstance(ast, _FeelVar) and ast.path[0] in local_names:
+                        return None
+                cards = self._predict_mi_cards(info, needed, merged)
+                if cards is None:
+                    return None
+                mi_cards = cards
+            for row, lc in mi_parked.items():
+                if row in seq_rows:
+                    card = mi_cards.get(row)
+                    if card is None or lc is None or lc > card:
+                        return None
+                    mi_left[row] = card - lc
+                else:
+                    mi_left[row] = 0  # parallel: fully spawned at rest
+            for row in needed:
+                if row not in mi_parked:
+                    mi_left[row] = mi_cards[row]
+        inst = _Inst(idx=len(instances), info=info, new=False, pi_key=pi_key,
+                     tokens=tokens, join_counts=join_counts, slots=slots,
+                     family_pis=family, mi_left=mi_left, mi_cards=mi_cards)
+        # timer-touching bursts ARE templatable: clock-derived dueDate /
+        # deadline fields in the admission docs are extracted as ("fp", i)
+        # roles by the fingerprint walk (so instances with different due
+        # dates share a template), and freshly computed due dates in the
+        # burst itself resolve as ("clock", delta) roles
+        # locals of EVERY parked token: input mappings create them, but so
+        # can SetVariables(local=true) on any element instance — and output
+        # mappings / variable propagation read them, so the template
+        # fingerprint must pin them all (root-scope variables are pinned
+        # via ``merged`` already)
+        mapped_locals = [
+            sorted(state.variables.locals_of(t.key).items()) for t in tokens
+        ]
+        # sub-process scope locals (written e.g. by inner output mappings):
+        # mapping/condition evaluation reads them through collect(), so two
+        # instances differing only there must fingerprint apart
+        scope_locals = [
+            (idx, sorted(state.variables.locals_of(k).items()))
+            for idx, k in sorted(scope_keys.items()) if idx != 0
+        ]
+        return _Admitted(
+            cmd=cmd, inst=inst, resume_token=resume, kind=kind,
+            fp_docs=[
+                cmd.record.value,
+                *head_docs,
+                root["value"],
+                [t.value for t in tokens],
+                wait_docs,
+                sorted(merged.items()),
+                sorted(join_counts.items()),
+                mapped_locals,
+                scope_locals,
+            ],
+            templatable=pi_key not in self.engine.await_results,
+            wait_keys=wait_keys,
+        )
+
+    def _admit_job_complete(self, cmd, instances, admitted_pis,
+                            wave) -> _Admitted | None:
+        state = self.engine.state
+        job = state.jobs.get(cmd.record.key)
+        if job is None:
+            return None  # sequential path writes the NOT_FOUND rejection
+        return self._admit_resume(
+            cmd, instances, admitted_pis,
+            pi_key=job.get("processInstanceKey", -1),
+            resume_key=job.get("elementInstanceKey", -1),
+            kind="j",
+            head_docs=[job],
+            extra_variables=cmd.record.value.get("variables"),
+            require_op=K_TASK,
+            wave=wave,
+        )
+
+    def _admit_timer_trigger(self, cmd, instances, admitted_pis,
+                             wave) -> _Admitted | None:
+        state = self.engine.state
+        timer = state.timers.get(cmd.record.key)
+        if timer is None:
+            return None  # sequential path writes the NOT_FOUND rejection
+        eik = timer.get("elementInstanceKey", -1)
+        if eik < 0:
+            return None  # timer start event → host path
+        instance = state.element_instances.get(eik)
+        if instance is None:
+            return None  # element gone; host records TRIGGERED only
+        # only the waiting catch element itself (route_trigger's first
+        # branch); boundary / event-based-gateway routing stays on the host
+        if timer.get("targetElementId") != instance["value"].get("elementId"):
+            return None
+        return self._admit_resume(
+            cmd, instances, admitted_pis,
+            pi_key=instance["value"].get("processInstanceKey", -1),
+            resume_key=eik,
+            kind="t",
+            head_docs=[timer],
+            extra_variables=None,
+            require_op=K_CATCH,
+            wave=wave,
+        )
+
+    def _admit_message_correlate(self, cmd, instances, admitted_pis,
+                                 wave) -> _Admitted | None:
+        state = self.engine.state
+        value = cmd.record.value
+        eik = value.get("elementInstanceKey", -1)
+        sub = state.process_message_subscriptions.get(eik, value.get("messageName", ""))
+        instance = state.element_instances.get(eik)
+        if sub is None or instance is None:
+            return None  # at-least-once redelivery → host no-op path
+        if sub.get("targetElementId") != instance["value"].get("elementId"):
+            return None  # boundary / event-based gateway → host
+        return self._admit_resume(
+            cmd, instances, admitted_pis,
+            pi_key=instance["value"].get("processInstanceKey", -1),
+            resume_key=eik,
+            kind="m",
+            head_docs=[sub],
+            extra_variables=value.get("variables"),
+            require_op=K_CATCH,
+            wave=wave,
+        )
+
+    # -- device run ----------------------------------------------------------
+
+    @staticmethod
+    def _pow2(n: int) -> int:
+        p = 8
+        while p < n:
+            p *= 2
+        return p
+
+    def _build_group_arrays(self, admitted: list[_Admitted]):
+        """Host (numpy) arrays for one admitted group, padded to the shape
+        bucket: (arrays dict, I, T), or None when the geometry exceeds the
+        event-packing bounds. Shared by the single-device path and the
+        mesh-runner path (which treats the group as one shard block)."""
+        from zeebe_tpu_torch.ops.automaton import PACK_MAX_ELEMENTS, PACK_MAX_TOKENS
+
+        tables = self.registry.tables
+        insts = [a.inst for a in admitted]
+        n_real = len(insts)
+        n_tokens = sum(max(1, len(i.tokens)) for i in insts)
+        # two shape buckets: XLA specializes on shapes, not occupancy, so
+        # groups are padded to either the small (64) or the max-group
+        # geometry — exactly two compilations per table set, small groups
+        # don't pay the big bucket's device time, and a warmup at each bucket
+        # keeps compilation out of steady state. Token-heavy groups overflow
+        # to the next power of two (rare; costs one extra compile).
+        small = min(64, self._pow2(self.max_group))
+        I = small if n_real <= small else self._pow2(self.max_group)
+        # token pool: the set's static live-width bound (tables.token_width)
+        # sizes it exactly — a one-token-per-instance set runs at T == I
+        # instead of 4x, which is pure device-time savings; with no sound
+        # bound (parallel split on a cycle) keep the legacy 4x factor.
+        # Overflow is detected and falls back, so an undersized pool is a
+        # perf bug, not a correctness one — but the bound is sound, so it
+        # cannot happen for bounded sets.
+        width = tables.token_width
+        # parallel MI fan-out is dynamic: admission-predicted cardinalities
+        # bound the extra live tokens beyond the static analysis
+        mi_extra = sum(sum(i.mi_cards.values()) for i in insts if i.mi_cards)
+        if width > 0:
+            T = self._pow2(max(width * I, n_tokens))
+        else:
+            T = self._pow2(max(4 * I, 4 * n_tokens, n_tokens + mi_extra + I))
+        E = tables.max_elements
+        S = tables.num_slots
+        if T > PACK_MAX_TOKENS or E >= PACK_MAX_ELEMENTS:
+            # the bit-packed event tensor carries dest in 16 bits and elem in
+            # 14 — geometries beyond that (absurd for real workloads) take
+            # the sequential path instead of corrupting the decode
+            logger.warning("kernel geometry T=%d E=%d exceeds event packing "
+                           "bounds; falling back", T, E)
+            return None
+
+        elem = np.full(T, -1, np.int32)
+        phase = np.zeros(T, np.int32)
+        inst_arr = np.zeros(T, np.int32)
+        def_of = np.zeros(I, np.int32)
+        var_slots = np.zeros((I, S, 2), np.int32)
+        join_counts = np.zeros((I, E), np.int32)
+        mi_left = np.zeros((I, E), np.int32)
+        done = np.zeros(I, np.bool_)
+        done[n_real:] = True  # padding rows must never report newly_done
+
+        slot = 0
+        for i in insts:
+            def_of[i.idx] = i.info.index
+            for name, v in i.slots.items():
+                var_slots[i.idx, tables.slot_map.names[name]] = v
+            for jidx, count in i.join_counts.items():
+                join_counts[i.idx, jidx] = count
+            for row, n in i.mi_left.items():
+                mi_left[i.idx, row] = n
+            if i.new:
+                i.tokens = [_Token(slot=slot, elem_idx=int(tables.start_elem[i.info.index]),
+                                   key=-1, value={})]
+                elem[slot] = i.tokens[0].elem_idx
+                phase[slot] = _PHASE_AT
+                inst_arr[slot] = i.idx
+                slot += 1
+            else:
+                for tok in i.tokens:
+                    tok.slot = slot
+                    elem[slot] = tok.elem_idx
+                    phase[slot] = tok.phase
+                    inst_arr[slot] = i.idx
+                    slot += 1
+        arrays = {
+            "elem": elem, "phase": phase, "inst": inst_arr, "def_of": def_of,
+            "var_slots": var_slots, "join_counts": join_counts,
+            "mi_left": mi_left, "done": done,
+        }
+        return arrays, I, T
+    # end of the copy
+
+    def _start_kernel(self, pg: "_PendingGroup") -> None:
+        """Stage 1 of the split device run: build the group arrays and
+        dispatch the first chunk asynchronously (CUDA's stream order) — the
+        caller overlaps host work with the device compute before calling
+        ``_await_kernel``. Mesh groups stay synchronous (the runner's submit
+        blocks), so they only record the build."""
+        built = self._build_group_arrays(pg.admitted)
+        if built is None:
+            pg.failed = True
+            pg.fail_reason = "geometry-bounds"
+            return
+        pg.arrays, pg.I, pg.T = built
+        pg.tables = self.registry.tables
+        if self.mesh_runner is not None:
+            pg.mesh = True
+            return
+        # the bucket carries the table-set content digest: different
+        # deployed sets are different programs
+        pg.bucket = (self.registry.tables_fingerprint, pg.I, pg.T)
+        pg.dev = self.device
+        # chunk k+1 is dispatched before chunk k's rows are fetched only on
+        # the card, where the device computes while the host decodes
+        pg.pipeline_chunks = pg.dev.type == "cuda"
+        # shadow sampling decided BEFORE dispatch: only sampled groups pay
+        # the fetched-row retention (canaries are forced-shadow)
+        pg.shadow = pg.canary or self._shadow_sampled()
+        t0 = time.perf_counter()
+        self._begin_dispatch(pg, lambda: self._dispatch_first_chunk(pg))
+        if not pg.failed:
+            # device_elapsed covers only the dispatch and fetch windows,
+            # never the host work the caller overlaps between them
+            pg.device_elapsed = time.perf_counter() - t0
+
+    def _await_kernel(self, pg: "_PendingGroup") -> list[dict] | None:
+        """Stage 2: block on the in-flight device run (or submit the mesh
+        request) and return the decoded per-step events, None on fallback."""
+        if pg.failed:
+            return None
+        if pg.mesh:
+            t0 = time.perf_counter()
+            result = self.mesh_runner.submit(GroupRequest(
+                device_tables=self.registry.device_tables_for(self.mesh_runner.mesh.device),
+                config=pg.tables.kernel_config,
+                tables_fingerprint=self.registry.tables_fingerprint,
+                arrays=pg.arrays,
+                num_instances=pg.I,
+                num_tokens=pg.T,
+                max_steps=self.max_steps,
+                chunk_steps=self.chunk_steps,
+            ))
+            submit_dur = time.perf_counter() - t0
+            pg.device_elapsed += submit_dur
+            if result.steps is None:
+                pg.fail_reason = "mesh-dispatch-error"
+                logger.warning("mesh kernel dispatch errored; falling back")
+            elif not result.quiesced:
+                pg.fail_reason = "mesh-no-quiesce"
+                logger.warning("mesh kernel group did not quiesce; falling back")
+            elif result.overflow:
+                pg.fail_reason = "mesh-token-overflow"
+                logger.warning("mesh kernel token pool overflow (T=%d); falling back", pg.T)
+            # the mesh submit seam span: one per submit on the wave's group
+            # trace, outcome included so declined submits are visible
+            tracer = self._tracer
+            if tracer.enabled and pg.admitted:
+                group_trace = (f"{self._partition_id}:"
+                               f"g{pg.admitted[0].cmd.position}")
+                # group spans bypass head sampling — they carry the
+                # substitution intervals for every sampled command
+                tracer.emit(
+                    group_trace, "kernel.mesh_submit", submit_dur,
+                    self._partition_id, parent="processor.kernel_group",
+                    attrs={"instances": pg.I, "tokens": pg.T,
+                           "outcome": pg.fail_reason or "ok"})
+            if pg.fail_reason:
+                return None
+            return result.steps
+
+        t0 = time.perf_counter()
+        # a mid-group fetch failure or a watchdog-expired stall abandons the
+        # group (contained: None)
+        steps = self._contained(pg, "fetch", lambda: self._complete_device_run(pg))
+        pg.device_elapsed += time.perf_counter() - t0
+        return steps
+
+    # copied from the reference: _observe_compile .. _observe_compile
+    @staticmethod
+    def _observe_compile(I: int, T: int, seconds: float) -> None:
+        """Feed one first-dispatch wall time into the XLA compile telemetry
+        (observability/profiler.py): the histogram is labeled by geometry
+        bucket, the counter classifies hit/miss against the persistent-cache
+        threshold. Telemetry must never take a dispatch down."""
+        try:
+            from zeebe_tpu_torch.observability.profiler import observe_compile
+
+            observe_compile(f"I{I}xT{T}", seconds)
+        except Exception:  # noqa: BLE001
+            pass
+    # end of the copy
+
+    def _group_state(self, pg: "_PendingGroup", dev) -> dict:
+        """The group's initial kernel state on ``dev``: the host-filled
+        arrays plus zero incident flags and counters, built per group (the
+        reference shares its zero planes across groups because JAX arrays
+        are immutable; torch tensors are not). The dispatch path and the
+        shadow oracle both start from it."""
+        return group_state(pg.arrays, dev)
+
+    def _dispatch_first_chunk(self, pg: "_PendingGroup") -> None:
+        dev = pg.dev
+        pg.config = pg.tables.kernel_config
+        pg.dt = self.registry.device_tables_for(dev)
+        state = self._group_state(pg, dev)
+        # compile seam: the FIRST dispatch per (table set, shape bucket,
+        # device) is timed to its end, the first launch's completion
+        # included (a one-time wait); later dispatches of the geometry stay
+        # untimed and asynchronous
+        compile_key = (pg.bucket, dev)
+        first_dispatch = compile_key not in self._compiles_seen
+        t_compile = time.perf_counter()
+        with _profiler_annotation("zeebe.kernel_chunk.first"):
+            # enqueued: the chunk and the copy of its rows run on the stream
+            # while the caller goes on; fetching the rows waits for them
+            pg.run = _dispatch(pg.dt, state, self.chunk_steps, pg.config, run_collect)
+        if first_dispatch:
+            if pg.run.ready is not None:
+                pg.run.ready.synchronize()
+            self._compiles_seen.add(compile_key)
+            self._observe_compile(pg.I, pg.T, time.perf_counter() - t_compile)
+
+    def _complete_device_run(self, pg: "_PendingGroup"):
+        """The chunk loop behind the group's first chunk (``pg.run``), every
+        fetch through the seam: the decoded steps, or None with
+        ``pg.fail_reason`` set."""
+        return _complete_device_run(
+            pg, pg.run, run_collect, lambda chunk, k: self._fetch_rows(pg, chunk, k),
+            self.chunk_steps, self.max_steps).steps
+
+    def _oracle_start(self, pg: "_PendingGroup") -> dict:
+        return self._group_state(pg, "cpu")
+
+    def _oracle_chunking(self, pg: "_PendingGroup") -> tuple[int, int]:
+        return self.chunk_steps, self.max_steps
+
+    # copied from the reference: device_status .. note_group_success
+    def device_status(self) -> dict:
+        """The ``device`` block under ``kernelCoverage`` on /health and
+        /cluster/status: ladder state + shadow/canary counters."""
+        return {**self.health.status(),
+                "shadowQuarantinedGroups": self.shadow_quarantined}
+
+    # -- materialization ------------------------------------------------------
+
+    def process_group(self, cmds, make_builder: Callable[[], Any]) -> tuple[list, list]:
+        """Pull commands from the ``cmds`` iterator while they admit (lazy: a
+        non-admittable head costs one log read, not a full peek), run the
+        kernel, and materialize each admitted command's record burst — either
+        through a burst template (fast path: patched bytes + state deltas) or
+        through the Writers/appliers slow path (which doubles as template
+        capture). Returns (admitted_cmds, results) where each result is a
+        ProcessingResultBuilder or a PreparedBurst; empty lists mean the
+        caller should process the head command sequentially.
+
+        Must run inside the partition's open db transaction. The synchronous
+        begin+finish composition; the pipelined processor calls the halves
+        itself and overlaps host work between them."""
+        return self.finish_group(self.begin_group(cmds), make_builder)
+
+    def begin_group(self, cmds, speculative: bool = False) -> _PendingGroup | None:
+        """Admit a group and dispatch its first device chunk asynchronously.
+        Returns None when the head command is not admittable (sequential
+        traffic). Must run inside the partition's open db transaction, and
+        the same transaction must stay open through ``finish_group``.
+
+        ``speculative``, cross-wave double buffering): the
+        processor is beginning wave k+1 inside wave k's still-open
+        transaction, right after wave k materialized — admission reads the
+        post-wave overlay, which is byte-identical to the committed state
+        the next round's transaction will open over. A speculative begin is
+        silent on decline (no fallback counters, no typed host notes, no
+        quarantine reroute accounting): the group may never be consumed, so
+        the NEXT round's authoritative scan owns all accounting. It also
+        never claims a canary slot — under quarantine the ladder's one-
+        probe-per-interval discipline belongs to the real scan."""
+        import time as _time
+
+        if speculative and (self.mesh_runner is not None
+                            or self.health.is_quarantined()):
+            # mesh has its own submit pipeline; a quarantined device gets
+            # exactly the canary probes the health ladder schedules, never
+            # an extra speculative dispatch
+            return None
+
+        # device health gating: while QUARANTINED every group is
+        # host-routed (typed accounting) except the periodic canary — ONE
+        # group per interval dispatched under FORCED shadow verification (a
+        # known-answer probe: the host oracle is the answer, so a wrong
+        # canary cannot commit wrong bytes). Mesh dispatch has its own
+        # killable probe and is not gated here.
+        canary = False
+        if self.mesh_runner is None and self.health.is_quarantined():
+            if self.health.canary_due():
+                canary = True
+            else:
+                head = next(iter(cmds), None)
+                if head is None:
+                    return None  # end-of-log probe, not a reroute
+                self.fallbacks += 1
+                self.accounting.note_host("device-quarantined",
+                                          self._definition_of(head.record))
+                self.health.note_host_reroute()
+                return None
+
+        t0 = _time.perf_counter()
+        instances: dict[int, _Inst] = {}
+        # pi_key conflict index: one command per instance per group; a set
+        # keeps admission O(1) instead of O(group) per command
+        admitted_pis: set[int] = set()
+        admitted: list[_Admitted] = []
+        # per-wave admission memo (definition lookups, segment freshness,
+        # condition slot planes): admission runs inside one open transaction
+        # over state nothing mutates until materialization, so everything it
+        # derives from state alone is stable for the whole wave
+        wave: dict = {}
+        head_cmd = None
+        for cmd in cmds:
+            if head_cmd is None:
+                head_cmd = cmd
+            adm = self._admit(cmd, instances, admitted_pis, wave)
+            if adm is None:
+                break
+            instances[adm.inst.idx] = adm.inst
+            if adm.inst.pi_key is not None and adm.inst.pi_key >= 0:
+                admitted_pis.add(adm.inst.pi_key)
+            admitted_pis.update(adm.inst.family_pis)
+            admitted.append(adm)
+            if len(admitted) >= self.max_group:
+                break
+        if not admitted:
+            if canary:
+                # the claimed canary slot never dispatched: un-claim it so
+                # the next admittable group can probe immediately instead
+                # of waiting out an interval the device never saw
+                self.health.release_canary()
+            if speculative:
+                # nothing speculatively admittable — no accounting: the next
+                # round's real scan re-encounters this head and notes it once
+                return None
+            if head_cmd is None:
+                # the candidate iterator was EMPTY — an end-of-log probe, not
+                # a fallback: these probes were counted as
+                # "head-not-admittable" and made mesh_serving p1 report 4
+                # phantom fallbacks per run)
+                return None
+            # the head command is not kernel-admittable (deploys, unknown
+            # defs, non-default tenants, …): normal sequential traffic, but
+            # counted — WITH the head's kind — so BENCH separates ordinary
+            # sequential commands (a deployment, a message publish) from a
+            # regression where an admittable kind stopped admitting
+            self.fallbacks += 1
+            rec = head_cmd.record
+            self.accounting.note_host(
+                f"head-not-admittable:{rec.value_type.name}.{rec.intent.name}",
+                self._definition_of(rec),
+            )
+            return None
+        pg = _PendingGroup(admitted)
+        pg.canary = canary
+        pg.t_admit = _time.perf_counter() - t0
+        self._start_kernel(pg)
+        return pg
+
+    def finish_group(self, pg: _PendingGroup | None,
+                     make_builder: Callable[[], Any]) -> tuple[list, list]:
+        """Block on the in-flight device run and materialize the bursts.
+        ([], []) → the caller should process the head command sequentially."""
+        import time as _time
+
+        if pg is None:
+            return [], []
+        steps = self._await_kernel(pg)
+        if steps is not None and not pg.mesh and pg.shadow:
+            # the validation/shadow seam: the ONLY way a device
+            # result may proceed toward the group transaction when sampled
+            # — on mismatch the host oracle's steps come back instead
+            steps = self._verify_steps(pg, steps)
+        if steps is None:
+            # the whole group declined at dispatch; the HEAD is what the
+            # caller processes sequentially next (the rest re-admit), so
+            # exactly one host record is noted, with the typed reason
+            self.fallbacks += 1
+            chaos = _DEVICE_CHAOS
+            if chaos is not None and pg.corrupt_tokens:
+                # a typed decline (no-quiesce/overflow a corruption itself
+                # provoked) discards the fetched rows: caught by containment
+                for token in pg.corrupt_tokens:
+                    chaos.note_caught(token, "contained")
+                pg.corrupt_tokens = []
+            if pg.canary:
+                if pg.fail_reason in ("device-dispatch-error",
+                                      "device-wedged"):
+                    # the probe reached the device and the device failed:
+                    # a real failed canary, the recovery streak resets
+                    self.health.note_canary(
+                        False, detail=pg.fail_reason)
+                else:
+                    # a host-side decline (geometry-bounds, no-quiesce,
+                    # token-overflow) never proved anything about the
+                    # device — un-claim the slot so the next admittable
+                    # group probes immediately, and leave the verified
+                    # streak alone (a pathological GROUP must not hold
+                    # the device in quarantine)
+                    self.health.release_canary()
+            head = pg.admitted[0]
+            self.accounting.note_host(
+                pg.fail_reason or "group-error",
+                head.inst.info.exe.process_id,
+            )
+            return [], []
+
+        t0 = _time.perf_counter()
+        admitted = pg.admitted
+        results = []
+        for adm in admitted:
+            ops = self._cascade_ops(adm.inst, steps)
+            results.append(self._materialize(adm, ops, make_builder))
+        pg.t_materialize = _time.perf_counter() - t0
+        self.groups_processed += 1
+        self.commands_processed += len(admitted)
+        return [a.cmd for a in admitted], results
+
+    def note_group_success(self, pg: _PendingGroup) -> None:
+        """Per-definition kernel-path accounting for one materialized group
+        (coverage gauge + parity gate), batched per definition to bound
+        gauge writes. Called by the processor AFTER the group's transaction
+        commits — noting inside ``finish_group`` would double-count the
+        group when a post-materialization commit failure rolls it back and
+        the same commands re-admit on the next pump."""
+        defs: dict[str, int] = {}
+        for adm in pg.admitted:
+            pid = adm.inst.info.exe.process_id
+            defs[pid] = defs.get(pid, 0) + 1
+        for pid, n in defs.items():
+            self.accounting.note_kernel(pid, n)
+        # clean-group evidence for the health ladder: a committed group
+        # with no fault steps SUSPECT back toward HEALTHY after the
+        # configured quiet window
+        self.health.note_group_ok()
+    # end of the copy
+
+    # copied from the reference: _materialize .. _emit_process_completed
+    def _materialize(self, adm: _Admitted, ops: list, make_builder):
+        from zeebe_tpu_torch.engine import burst_templates as bt
+        from zeebe_tpu_torch.engine.writers import Writers
+
+        template = None
+        key = None
+        if self.use_templates and adm.templatable:
+            # request presence is part of the burst SHAPE (Writers.respond
+            # only emits a client response when request_id >= 0), so it must
+            # be in the key — the ids themselves are patched roles
+            fp_bytes = adm.fp_bytes
+            if fp_bytes is None:  # admission-time fingerprint unavailable
+                fp_bytes, adm.fp_values, adm.fp_pinned = self._fingerprint(adm)
+            # segment child-def keys are in the key: a refresh_segments swap
+            # reuses the info index, and a stale template would patch the OLD
+            # child definition's baked constants into new-binding bursts
+            key = (adm.kind, adm.inst.info.index,
+                   tuple(s.child_def_key for s in adm.inst.info.segments),
+                   adm.cmd.record.request_id >= 0, tuple(ops), fp_bytes)
+            template = self._templates.get(key, _MISSING)
+            if template is _MISSING:
+                template = None
+                miss = True
+            else:
+                miss = False
+                # move-to-end so eviction (oldest-half sweep) drops cold
+                # entries, not the hottest templates
+                del self._templates[key]
+                self._templates[key] = template
+            if template is not None and not self.audit_templates:
+                self.template_hits += 1
+                return self._instantiate(template, adm)
+        else:
+            miss = False
+
+        # slow path (also: template capture on first miss, audit on hit)
+        capture = self.use_templates and adm.templatable and miss
+        auditing = template is not None and self.audit_templates
+        txn = self.engine.state.db.require_transaction()
+        state = self.engine.state
+        role_map, wrapped = self._roles_for(adm)
+        mints: list[int] = []
+        orig_next_key = state.next_key
+        if capture or auditing:
+            def tagged_next_key():
+                v = orig_next_key()
+                mints.append(v)
+                return v
+            state.next_key = tagged_next_key
+            txn.capture = cap_log = []
+            # collect clock-derived values (dueDate = clock + clock-free
+            # delta) the engine computes during this run — they become
+            # ("clock", delta) roles; a poison note (now()-entangled delta)
+            # declines the template
+            bt.clock_note_begin()
+        builder = make_builder()
+        writers = Writers(builder, self.engine.appliers)
+        try:
+            if adm.inst.new:
+                self._materialize_creation(wrapped, adm, ops, writers, builder)
+            else:
+                self._materialize_resume(wrapped, adm, ops, writers, builder)
+            if any(f.record.is_command and not f.processed
+                   for f in builder.follow_ups):
+                self._drain_host_escapes(wrapped.position, builder)
+        finally:
+            if capture or auditing:
+                state.next_key = orig_next_key
+                txn.capture = None
+                clock_notes, clock_poison = bt.clock_note_end()
+        if capture:
+            self.template_misses += 1
+            allowed = adm.fp_pinned if adm.fp_pinned is not None else set()
+            if adm.inst.info.segments:
+                # called-definition keys resolve mid-burst (CallActivity
+                # latest-binding) and are sound template constants: the
+                # admission freshness check pins the binding, and the keys
+                # are part of the template cache key
+                allowed = allowed | {
+                    s.child_def_key for s in adm.inst.info.segments
+                }
+            if clock_poison:
+                role_map = None
+            for i, v in enumerate(mints):
+                if role_map is None:
+                    break
+                if v in role_map:
+                    role_map = None  # role collision → not templatable
+                    break
+                role_map[v] = ("mint", i)
+            for i, v in enumerate(adm.fp_values or ()):
+                if role_map is None:
+                    break
+                if v in role_map:
+                    # a clock-field value colliding with a key/mint would
+                    # patch the wrong quantity — decline instead
+                    role_map = None
+                    break
+                role_map[v] = ("fp", i)
+            # delta → value of this run's clock notes: capture validation
+            # resolves against the exact values the slow path wrote (immune
+            # to a clock tick mid-run)
+            clock_values: dict[int, int] = {}
+            for v, delta in clock_notes:
+                if role_map is None:
+                    break
+                if v < _ROLE_VALUE_MIN:
+                    # a small (test-clock) due date cannot be a patchable
+                    # role and would bake stale — decline the template
+                    role_map = None
+                    break
+                existing = role_map.get(v)
+                if existing is not None and existing != ("clock", delta):
+                    role_map = None  # same value, conflicting meaning
+                    break
+                if v in allowed or clock_values.get(delta, v) != v:
+                    # fingerprint-pinned elsewhere, or two different values
+                    # for one delta (clock ticked between two same-duration
+                    # timers): ambiguous — decline
+                    role_map = None
+                    break
+                role_map[v] = ("clock", delta)
+                clock_values[delta] = v
+            if role_map is not None:
+                roles_ctx = bt.Roles(role_map, allowed=allowed)
+                try:
+                    tmpl = bt.build_template(
+                        builder, cap_log, roles_ctx, len(mints),
+                        state.partition_id,
+                    )
+                    bt.validate_template(
+                        tmpl, builder,
+                        self._resolver(adm, mints, clock_values))
+                    self._store_template(key, tmpl)
+                except bt.NotTemplatable as exc:
+                    logger.debug("trace not templatable: %s", exc)
+                    self._store_template(key, None)
+            else:
+                self._store_template(key, None)
+        elif auditing:
+            audit_clock_values: dict[int, int] = {}
+            conflict = clock_poison
+            for v, delta in clock_notes:
+                if audit_clock_values.setdefault(delta, v) != v:
+                    # the wall clock ticked between two same-duration timer
+                    # creations in this run: the single delta→value map can't
+                    # represent both, so the audit would assert spuriously —
+                    # skip it (capture declines this shape, so no template
+                    # was ever built from such a run)
+                    conflict = True
+                    break
+            if conflict:
+                self.template_audit_skips += 1
+            else:
+                self.template_audits += 1
+                self._audit_template(template, adm, builder, cap_log, mints,
+                                     audit_clock_values)
+        return builder
+
+    def _drain_host_escapes(self, source_position: int, builder,
+                            limit: int | None = None,
+                            end_idx: int | None = None,
+                            reserved_keys: set | None = None) -> None:
+        """Process follow-up commands left unprocessed (flows into K_HOST
+        elements, and whatever those spawn) with the sequential engine, FIFO,
+        within the batch budget — so the flattened burst matches the
+        sequential batch loop (stream/processor.py _batch_process) byte for
+        byte: same record order, same positions, same processed flags, same
+        source position. ``limit=1`` drains exactly one command (the trace
+        interleaves it at the escaped token's arrival position);
+        ``end_idx`` drains only commands appended before that follow-up
+        index (a device token's processing must first flush escape cascades
+        that precede its ACTIVATE in the queue); the final unbounded call
+        flushes whatever remains. Commands beyond the budget stay
+        unprocessed on the log and the stream processor picks them up as
+        the next commands, exactly like a sequential batch that hit its
+        limit."""
+        from zeebe_tpu_torch.logstreams.log_stream import LoggedRecord
+
+        budget = self.max_commands_in_batch - 1 - sum(
+            1 for f in builder.follow_ups if f.record.is_command and f.processed
+        )
+        if limit is not None:
+            budget = min(budget, limit)
+        scan = 0
+        while budget > 0:
+            follow_up = None
+            bound = len(builder.follow_ups) if end_idx is None else end_idx
+            while scan < bound:
+                entry = builder.follow_ups[scan]
+                if entry.record.is_command and not entry.processed:
+                    if (reserved_keys
+                            and entry.record.value_type == ValueType.PROCESS_INSTANCE
+                            and int(entry.record.intent) == int(PI.COMPLETE_ELEMENT)
+                            and entry.record.key in reserved_keys):
+                        # a device MI body's completion command: its "done"
+                        # op pairs with it (device-side drain detection) —
+                        # draining it here would double-complete the body
+                        scan += 1
+                        continue
+                    follow_up = entry
+                    break
+                scan += 1
+            if follow_up is None:
+                return
+            follow_up.processed = True
+            budget -= 1
+            logged = LoggedRecord(
+                record=follow_up.record, position=-1,
+                source_position=source_position, processed=True,
+            )
+            self.engine.process(logged, builder)
+            scan += 1
+
+    def _store_template(self, key, template) -> None:
+        cache = self._templates
+        if len(cache) >= self._template_cache_limit:
+            for k in list(cache)[: self._template_cache_limit // 2]:
+                del cache[k]
+        cache[key] = template
+
+    # document fields whose int values are clock-derived and copied verbatim
+    # by the slow path (never transformed into non-int outputs): they are
+    # extracted as per-command template inputs (("fp", i) roles) instead of
+    # pinned in the fingerprint, so e.g. timer-carrying instances with
+    # different due dates share one burst template
+    _FP_FIELDS = frozenset(("dueDate", "deadline"))
+
+    def _fingerprint(self, adm: _Admitted) -> tuple[bytes, list[int], set[int]]:
+        """(byte image, extracted clock-field values, pinned large ints) of
+        the instance-scoped documents the slow path reads. Role values (keys
+        known at admission) and whitelisted clock-derived fields are
+        normalized away so two commands differing only in key identity / due
+        dates fingerprint equal; everything else is pinned byte-for-byte —
+        the returned pinned set is exactly the template's sound constant
+        allowance (Roles.allowed)."""
+        roles = {}
+        inst = adm.inst
+        if inst.pi_key >= _ROLE_VALUE_MIN:
+            roles[inst.pi_key] = "p"
+        for j, tok in enumerate(inst.tokens):
+            if tok.key >= _ROLE_VALUE_MIN:
+                roles[tok.key] = f"t{j}"
+        if adm.cmd.record.key >= _ROLE_VALUE_MIN:
+            roles[adm.cmd.record.key] = "k"
+        for j, wk in enumerate(adm.wait_keys or ()):
+            if wk >= _ROLE_VALUE_MIN:
+                roles.setdefault(wk, f"w{j}")
+        if _native_pack_fingerprint is not None:
+            return _native_pack_fingerprint(adm.fp_docs, roles, self._FP_FIELDS)
+        return _py_pack_fingerprint(adm.fp_docs, roles, self._FP_FIELDS)
+
+    def _roles_for(self, adm: _Admitted):
+        """(value→role map, role-tagged command) for capture/audit runs."""
+        from zeebe_tpu_torch.engine.burst_templates import RoleInt
+
+        role_map: dict[int, tuple] = {}
+        inst = adm.inst
+        if inst.pi_key >= _ROLE_VALUE_MIN:
+            role_map[inst.pi_key] = ("pi",)
+        for j, tok in enumerate(inst.tokens):
+            if tok.key >= _ROLE_VALUE_MIN:
+                role_map[tok.key] = ("tok", j)
+        for j, wk in enumerate(adm.wait_keys or ()):
+            if wk >= _ROLE_VALUE_MIN:
+                role_map.setdefault(wk, ("wait", j))
+        cmd = adm.cmd
+        rec = cmd.record
+        if rec.key >= _ROLE_VALUE_MIN:
+            role_map.setdefault(rec.key, ("cmd_key",))
+        wrapped_rec = rec.replace(
+            request_stream_id=RoleInt(rec.request_stream_id, ("req_stream",)),
+            request_id=RoleInt(rec.request_id, ("req_id",)),
+            operation_reference=RoleInt(rec.operation_reference, ("opref",)),
+        )
+        from zeebe_tpu_torch.logstreams import LoggedRecord
+
+        wrapped = LoggedRecord(
+            record=wrapped_rec,
+            position=RoleInt(cmd.position, ("source_position",)),
+            source_position=cmd.source_position,
+            processed=cmd.processed,
+        )
+        return role_map, wrapped
+
+    def _resolver(self, adm: _Admitted, mints: list[int],
+                  clock_values: dict[int, int] | None = None):
+        """``clock_values`` (delta → value) is passed on capture-validation
+        and audit runs so ("clock", delta) roles resolve to the exact values
+        the slow path just wrote; live instantiation recomputes them from
+        the engine clock."""
+        cmd = adm.cmd
+        inst = adm.inst
+        toks = inst.tokens
+        fp_values = adm.fp_values or ()
+        wait_keys = adm.wait_keys or ()
+        # one clock snapshot per resolver: a burst's payload, state rows, and
+        # responses must all carry the SAME dueDate for one logical timer
+        # even if the wall clock ticks mid-instantiation
+        clock_base = (self.engine.clock_millis() if clock_values is None
+                      else None)
+
+        def resolve(role: tuple) -> int:
+            kind = role[0]
+            if kind == "mint":
+                return mints[role[1]]
+            if kind == "fp":
+                return fp_values[role[1]]
+            if kind == "clock":
+                delta = role[1]
+                if clock_values is not None:
+                    v = clock_values.get(delta)
+                    if v is not None:
+                        return v
+                    return self.engine.clock_millis() + delta
+                return clock_base + delta
+            if kind == "wait":
+                return wait_keys[role[1]]
+            if kind == "source_position":
+                return cmd.position
+            if kind == "req_id":
+                return cmd.record.request_id
+            if kind == "req_stream":
+                return cmd.record.request_stream_id
+            if kind == "opref":
+                return cmd.record.operation_reference
+            if kind == "cmd_key":
+                return cmd.record.key
+            if kind == "pi":
+                return inst.pi_key
+            if kind == "tok":
+                return toks[role[1]].key
+            raise KeyError(role)
+
+        return resolve
+
+    def _instantiate(self, template, adm: _Admitted):
+        from zeebe_tpu_torch.engine.burst_templates import PreparedBurst
+
+        state = self.engine.state
+        mints = state.bulk_mint(template.mint_count)
+        resolve = self._resolver(adm, mints)
+        buf = template.instantiate_payload(resolve)
+        txn = state.db.require_transaction()
+        template.apply_state(txn, resolve)
+        responses = template.build_responses(resolve)
+        return PreparedBurst(
+            buf=buf,
+            pos_offsets=template.pos_offsets,
+            ts_offsets=template.ts_offsets,
+            count=template.count,
+            responses=responses,
+            has_pending_commands=template.has_pending_commands,
+            job_types=template.job_types,
+        )
+
+    def _audit_template(self, template, adm: _Admitted, builder, cap_log,
+                        mints, clock_values: dict[int, int]) -> None:
+        """Shadow-check a template hit against the slow path just executed."""
+        from zeebe_tpu_torch.engine import burst_templates as bt
+        from zeebe_tpu_torch.state.db import ColumnFamilyCode
+        import struct as _struct
+
+        if len(mints) != template.mint_count:
+            raise AssertionError(
+                f"template audit: mint count {template.mint_count} != slow path {len(mints)}"
+            )
+        resolve = self._resolver(adm, mints, clock_values)
+        bt.validate_template(template, builder, resolve)
+        # state ops: template replay vs the slow path's capture log, collapsed
+        # to the final op per key exactly as build_template does (minus the
+        # KEY column family, which the template replaces with bulk mint)
+        final: dict[bytes, tuple] = {}
+        for op, key, value in cap_log:
+            if _struct.unpack_from(">H", key, 0)[0] == int(ColumnFamilyCode.KEY):
+                continue
+            if key in final:
+                del final[key]
+            final[key] = (op, value)
+        expected = [(op, key, value) for key, (op, value) in final.items()]
+
+        class _Recorder:
+            def __init__(self):
+                self.ops = []
+
+            def put(self, key, value):
+                self.ops.append(("put", key, value))
+
+            def delete(self, key):
+                self.ops.append(("del", key, None))
+
+        rec = _Recorder()
+        template.apply_state(rec, resolve)
+        if len(rec.ops) != len(expected):
+            raise AssertionError(
+                f"template audit: {len(rec.ops)} state ops vs slow path {len(expected)}"
+            )
+        for (op_a, key_a, val_a), (op_b, key_b, val_b) in zip(rec.ops, expected):
+            if op_a != op_b or key_a != key_b or (op_a == "put" and val_a != val_b):
+                raise AssertionError(
+                    f"template audit: state op mismatch {op_a} {key_a!r} vs {op_b} {key_b!r}"
+                )
+        # responses
+        got = template.build_responses(resolve)
+        want = ([] if builder.response is None else [(False, builder.response)]) + [
+            (True, r) for r in builder.extra_responses
+        ]
+        if len(got) != len(want):
+            raise AssertionError("template audit: response count mismatch")
+        for (extra_a, rec_a, stream_a, req_a), (extra_b, resp) in zip(got, want):
+            if (extra_a != extra_b or stream_a != resp.request_stream_id
+                    or req_a != resp.request_id or rec_a != resp.record):
+                raise AssertionError("template audit: response mismatch")
+
+    def _mark_last_command_processed(self, builder) -> None:
+        for entry in reversed(builder.follow_ups):
+            if entry.record.is_command:
+                entry.processed = True
+                return
+
+    def _materialize_creation(self, cmd, adm: _Admitted, ops, writers, builder) -> None:
+        from zeebe_tpu_torch.engine.bpmn import _pi_value
+
+        engine = self.engine
+        state = engine.state
+        inst = adm.inst
+        exe = inst.info.exe
+        # the sequential creation processor writes CREATED + response +
+        # ACTIVATE(process) command + seed VARIABLE events — reuse it verbatim
+        creation = engine._processors[
+            (ValueType.PROCESS_INSTANCE_CREATION, int(ProcessInstanceCreationIntent.CREATE))
+        ]
+        mark = len(builder.follow_ups)
+        creation(cmd, writers)
+        # locate the minted instance key + the ACTIVATE(process) command
+        activate_cmd = None
+        for entry in builder.follow_ups[mark:]:
+            if entry.record.is_command and entry.record.value_type == ValueType.PROCESS_INSTANCE:
+                activate_cmd = entry
+                break
+        if activate_cmd is None:  # rejection (definition vanished mid-group)
+            return
+        activate_cmd.processed = True
+        inst.pi_key = activate_cmd.record.key
+        process_el = exe.root
+        value = _pi_value(dict(activate_cmd.record.value), process_el)
+        writers.append_event(inst.pi_key, ValueType.PROCESS_INSTANCE, PI.ELEMENT_ACTIVATING, value)
+        if inst.info.root_esp_start_idxs:
+            # root event-sub-process start subscriptions open between
+            # ACTIVATING and ACTIVATED — the sequential behavior runs
+            # verbatim (byte parity by construction). A pre-validation
+            # failure (admission raced a variable change — can't happen for
+            # creations, defensive) leaves the root ACTIVATING with the
+            # incident written, same as the sequential path.
+            if not engine.bpmn._open_scope_event_subscriptions(
+                    inst.pi_key, value, exe, process_el, writers):
+                return
+        writers.append_event(inst.pi_key, ValueType.PROCESS_INSTANCE, PI.ELEMENT_ACTIVATED, value)
+        # ACTIVATE(start) — mirror BpmnProcessor._write_activate
+        start = exe.elements[exe.none_start_of(0)]
+        tok = inst.tokens[0]
+        tok.key = state.next_key()
+        tok.value = self._child_value(value, start, inst.pi_key)
+        writers.append_command(tok.key, ValueType.PROCESS_INSTANCE,
+                               PI.ACTIVATE_ELEMENT, tok.value)
+        if self.registry.tables.kernel_op[inst.info.index, start.idx] == K_HOST:
+            # host-escaped none start (e.g. output mappings): the device
+            # token parks silently; _materialize's post-trace drain hands the
+            # whole instance to the sequential engine
+            return
+        self._mark_last_command_processed(builder)
+        self._emit_ops(inst, ops, writers, builder, cmd.position)
+
+    _RESUME_HEADS = {
+        "j": (ValueType.JOB, int(JobIntent.COMPLETE)),
+        "t": (ValueType.TIMER, int(TimerIntent.TRIGGER)),
+        "m": (ValueType.PROCESS_MESSAGE_SUBSCRIPTION,
+              int(ProcessMessageSubscriptionIntent.CORRELATE)),
+    }
+
+    def _materialize_resume(self, cmd, adm: _Admitted, ops, writers, builder) -> None:
+        """Resume commands (job complete / timer trigger / message correlate)
+        share one shape: the sequential head processor writes its own events
+        (JOB COMPLETED + variables, TIMER TRIGGERED, …SUBSCRIPTION CORRELATED
+        + variables + ack side effect) and ends by routing a COMPLETE_ELEMENT
+        command at the parked element; the cascade emits what processing that
+        command would have."""
+        engine = self.engine
+        head = engine._processors[self._RESUME_HEADS[adm.kind]]
+        head(cmd, writers)
+        self._mark_last_command_processed(builder)  # the COMPLETE_ELEMENT cmd
+        self._emit_ops(adm.inst, ops, writers, builder, cmd.position)
+
+    @staticmethod
+    def _child_value(scope_value: dict, element: ExecutableElement, scope_key: int) -> dict:
+        """Mirror BpmnProcessor._write_activate's record value exactly."""
+        return {
+            "bpmnProcessId": scope_value["bpmnProcessId"],
+            "version": scope_value["version"],
+            "processDefinitionKey": scope_value["processDefinitionKey"],
+            "processInstanceKey": scope_value["processInstanceKey"],
+            "elementId": element.id,
+            "flowScopeKey": scope_key,
+            # an element with loop characteristics is entered through its
+            # multi-instance body wrapper (host-escaped on device)
+            "bpmnElementType": (
+                BpmnElementType.MULTI_INSTANCE_BODY.name
+                if element.multi_instance is not None
+                else element.element_type.name
+            ),
+            "bpmnEventType": element.event_type.name,
+        }
+
+    # -- device-step decoding: trace extraction + emission -------------------
+    #
+    # The old single-pass cascade is split in two: _cascade_ops walks the
+    # device steps once and produces a route trace over *logical* token ids
+    # (slot- and key-free, so it doubles as the burst-template cache key);
+    # _emit_ops interprets a trace through the Writers in exactly the order
+    # the one-pass walk used to emit.
+
+    def _cascade_ops(self, inst: _Inst, steps) -> list:
+        """Trace one instance's route through the device steps.
+
+        Ops (logical token ids; initial tokens are 0..len(tokens)-1, flow
+        targets get ids in creation order):
+          ("arrive", l, elem)      task activated, token parks
+          ("done", l, elem)        parked task completes (job completed)
+          ("pass", l, elem)        full activate+complete pass
+          ("nomatch", l, elem)     exclusive gateway with no matching flow
+          ("flow", l, elem, fo, new_l)  flow slot fo taken; new_l == -1 when
+                                   no token was placed (join arrival merged)
+          ("hostarr", l, elem)     token reached a host-escaped element: the
+                                   emitter drains its ACTIVATE sequentially
+                                   at exactly this FIFO position
+          ("complete",)            the process instance completed
+        """
+        tables = self.registry.tables
+        d = inst.info.index
+        exe = inst.info.exe
+        ops: list = []
+        # live: [logical id, slot, elem_idx]
+        live = [[l, t.slot, t.elem_idx] for l, t in enumerate(inst.tokens)]
+        next_l = len(live)
+        # logical id → step index at which a host-escaped token "arrives"
+        # (the device parks it silently; the trace needs the position)
+        host_arrive: dict[int, int] = {}
+        done_emitted = False
+        for si, ev in enumerate(steps):
+            if done_emitted or not live:
+                break
+            T = ev["elem"].shape[0]
+            additions: list = []
+            for tok in list(live):
+                l, s, e = tok
+                if l in host_arrive:
+                    if host_arrive[l] == si:
+                        ops.append(("hostarr", l, e))
+                        del host_arrive[l]
+                        live.remove(tok)
+                    continue
+                if ev["inst"][s] != inst.idx or ev["elem"][s] != e:
+                    continue  # slot reused after this token died (stale entry)
+                if ev["task_arrive"][s]:
+                    if tables.kernel_op[d, e] == K_SCOPE:
+                        # scope arrival: the inner start token's placement
+                        # rides flow slot 0 (see step()'s spawn channel); the
+                        # scope token itself stays parked
+                        dest = int(ev["dest"][s, 0])
+                        nl = next_l
+                        next_l += 1
+                        start_idx = int(tables.scope_start[d, e])
+                        additions.append([nl, dest, start_idx])
+                        ops.append(("scopearr", l, e, nl))
+                        if tables.kernel_op[d, start_idx] == K_HOST:
+                            host_arrive[nl] = si + 1
+                    elif tables.kernel_op[d, e] == K_MI:
+                        # MI body arrival: the device spawns child tokens (one
+                        # per step) purely for occupancy/drain tracking; their
+                        # activation records ride the sequential FIFO drain
+                        # (the body's _activate delegation queues the inner
+                        # ACTIVATE commands unprocessed), so the spawned
+                        # device tokens are NOT tracked here — only the body
+                        ops.append(("miarr", l, e))
+                    else:
+                        ops.append(("arrive", l, e))
+                elif ev["task_done"][s] or ev["full_pass"][s]:
+                    ops.append(("done" if ev["task_done"][s] else "pass", l, e))
+                    for fo in range(ev["take_mask"].shape[1]):
+                        if not ev["take_mask"][s, fo]:
+                            continue
+                        dest = int(ev["dest"][s, fo])
+                        if dest < T:
+                            fid = int(tables.out_flow_idx[d, e, fo])
+                            # fid < 0: synthetic link-jump edge — the target
+                            # lives in out_target, no model flow exists
+                            target_idx = (int(tables.out_target[d, e, fo])
+                                          if fid < 0 else exe.flows[fid].target_idx)
+                            nl = next_l
+                            next_l += 1
+                            additions.append([nl, dest, target_idx])
+                            ops.append(("flow", l, e, fo, nl))
+                            if tables.kernel_op[d, target_idx] == K_HOST:
+                                host_arrive[nl] = si + 1
+                        else:
+                            ops.append(("flow", l, e, fo, -1))
+                    live.remove(tok)
+                elif ev["no_match"][s]:
+                    ops.append(("nomatch", l, e))
+                    live.remove(tok)
+            live.extend(additions)
+            if ev["newly_done"][inst.idx] and not done_emitted:
+                ops.append(("complete",))
+                done_emitted = True
+        return ops
+
+    def _emit_ops(self, inst: _Inst, ops: list, writers, builder,
+                  source_position: int) -> None:
+        """Interpret a trace, writing the instance's record burst in the
+        sequential engine's FIFO follow-up order."""
+        from zeebe_tpu_torch.engine.bpmn import _pi_value
+
+        state = self.engine.state
+        tables = self.registry.tables
+        exe = inst.info.exe
+        d = inst.info.index
+        toks: dict[int, _Token] = dict(enumerate(inst.tokens))
+        mi_inner_rows = {v: k for k, v in inst.info.mi_inner.items()}
+        # device MI body keys whose COMPLETE_ELEMENT commands the drain must
+        # leave for the body's own "done" op (reconstructed bodies up front;
+        # in-burst activations join at their miarr)
+        reserved_keys: set[int] = {
+            t.key for t in inst.tokens
+            if tables.kernel_op[d, t.elem_idx] == K_MI and t.key >= 0
+        }
+        # pure-device traces (the common case) never need the FIFO drain —
+        # skip its O(follow_ups) scans wholesale. MI traces always drain:
+        # inner-child activations and respawns ride the sequential FIFO.
+        has_escapes = any(
+            o[0] in ("hostarr", "miarr")
+            or (o[0] == "done" and o[2] in mi_inner_rows)
+            for o in ops
+        )
+        for op in ops:
+            kind = op[0]
+            if kind == "complete":
+                if has_escapes:
+                    self._drain_host_escapes(source_position, builder,
+                                             reserved_keys=reserved_keys)
+                self._emit_process_completed(inst, writers, builder)
+                continue
+            if kind == "hostarr":
+                # the escaped element's ACTIVATE is the first unprocessed
+                # command (escapes drain in arrival order): hand it to the
+                # sequential engine at exactly this FIFO position
+                self._drain_host_escapes(source_position, builder, limit=1,
+                                         reserved_keys=reserved_keys)
+                continue
+            l, e = op[1], op[2]
+            tok = toks[l]
+            element = exe.elements[e]
+            value = _pi_value(tok.value, element)
+            if has_escapes and kind in ("arrive", "pass", "scopearr", "miarr",
+                                        "nomatch") and tok.act_idx >= 0:
+                # FIFO: escape cascades whose commands were appended before
+                # this token's ACTIVATE must emit first (the sequential batch
+                # loop would have processed them before reaching it)
+                self._drain_host_escapes(source_position, builder,
+                                         end_idx=tok.act_idx,
+                                         reserved_keys=reserved_keys)
+            elif has_escapes and kind == "done":
+                # a mid-trace completion (scope drain) appends its COMPLETE
+                # command at the queue's end — everything pending goes first
+                self._drain_host_escapes(source_position, builder,
+                                         reserved_keys=reserved_keys)
+            if kind == "miarr":
+                # MI body activation: delegate to the sequential activation
+                # wholesale (MultiInstanceBodyProcessor parity) — ACTIVATING,
+                # collection evaluation, ACTIVATED, output-collection seed,
+                # and the inner ACTIVATE commands, which stay UNPROCESSED:
+                # the FIFO drain activates each child at its exact sequential
+                # position while the device's spawned tokens (untracked here)
+                # park at the inner row for drain accounting
+                reserved_keys.add(tok.key)
+                self.engine.bpmn._activate(tok.key, dict(tok.value), exe,
+                                           element, writers)
+                continue
+            if kind == "arrive":
+                if element.element_type == BpmnElementType.EVENT_BASED_GATEWAY:
+                    # delegate to the sequential activation wholesale: its
+                    # pre-validation/incident handling and subscribe-before-
+                    # ACTIVATED ordering must match record for record
+                    self.engine.bpmn._activate(tok.key, dict(tok.value), exe,
+                                               element, writers)
+                    continue
+                writers.append_event(tok.key, ValueType.PROCESS_INSTANCE,
+                                     PI.ELEMENT_ACTIVATING, value)
+                if element.inputs:
+                    # input mappings create the element's local scope between
+                    # ACTIVATING and the boundary subscriptions (mirror
+                    # _activate's ordering; eligibility admits only safe
+                    # expressions, so failure is unreachable — handled
+                    # defensively by parking the element ACTIVATING exactly
+                    # like the sequential incident path)
+                    if not self.engine.bpmn._apply_input_mappings(
+                            tok.key, value, element, writers,
+                            context_key=value.get("flowScopeKey", -1)):
+                        continue
+                if element.boundary_idxs:
+                    # boundary subscriptions attach between ACTIVATING and
+                    # ACTIVATED (mirror BpmnProcessor._activate's ordering)
+                    self.engine.bpmn._open_boundary_subscriptions(
+                        tok.key, value, exe, element, writers
+                    )
+                writers.append_event(tok.key, ValueType.PROCESS_INSTANCE,
+                                     PI.ELEMENT_ACTIVATED, value)
+                if element.element_type in (BpmnElementType.INTERMEDIATE_CATCH_EVENT,
+                                            BpmnElementType.RECEIVE_TASK):
+                    # mirror BpmnProcessor._activate's catch branch: open the
+                    # wait state (timer / message subscription) on the host —
+                    # expressions evaluate against live variable state, and a
+                    # failure raises the same incident and parks the element
+                    bpmn = self.engine.bpmn
+                    if element.timer_duration is not None:
+                        bpmn._create_timer(tok.key, value, element, element, writers)
+                    elif element.signal_name is not None:
+                        bpmn._open_signal_subscription(tok.key, value, element,
+                                                       writers)
+                    else:
+                        bpmn._open_message_subscription(tok.key, value, element,
+                                                        element, writers)
+                else:
+                    self._emit_job_created(inst, tok, element, writers)
+            elif kind == "done":
+                if e in mi_inner_rows:
+                    # MI inner completion (job-complete resume): delegate to
+                    # the sequential completion with the BODY element (it
+                    # carries the loop characteristics) — COMPLETING, output
+                    # collection element, sequential-collection validation,
+                    # COMPLETED, and _on_mi_inner_completed's follow-up (the
+                    # next inner ACTIVATE, or the body's COMPLETE_ELEMENT —
+                    # both unprocessed: the respawn drains FIFO and the body
+                    # command is reserved for the body's own "done" op)
+                    body_el = exe.elements[mi_inner_rows[e]]
+                    ei = state.element_instances.get(tok.key)
+                    ivalue = dict(ei["value"]) if ei is not None else dict(tok.value)
+                    self.engine.bpmn._complete(tok.key, ivalue, exe, body_el,
+                                               writers)
+                    continue
+                if element.multi_instance is not None:
+                    # MI body completion: the COMPLETE_ELEMENT command was
+                    # appended by the last inner's completion cascade and
+                    # reserved from the drain — pair with it here, then
+                    # mirror _complete's is_mi_body tail (COMPLETING, output
+                    # collection propagation, COMPLETED); the outgoing flows
+                    # ride the device ("flow" ops)
+                    for entry in builder.follow_ups:
+                        if (entry.record.is_command and not entry.processed
+                                and entry.record.value_type == ValueType.PROCESS_INSTANCE
+                                and int(entry.record.intent) == int(PI.COMPLETE_ELEMENT)
+                                and entry.record.key == tok.key):
+                            entry.processed = True
+                            break
+                    else:
+                        logger.error(
+                            "MI body %s done on device without a pending "
+                            "COMPLETE_ELEMENT — decode divergence", element.id)
+                        continue
+                    ei = state.element_instances.get(tok.key)
+                    bvalue = _pi_value(
+                        dict(ei["value"]) if ei is not None else dict(tok.value),
+                        element)
+                    writers.append_event(tok.key, ValueType.PROCESS_INSTANCE,
+                                         PI.ELEMENT_COMPLETING, bvalue)
+                    mi = element.multi_instance
+                    if mi.output_collection:
+                        collection = state.variables.get_local(
+                            tok.key, mi.output_collection)
+                        if collection is not None:
+                            self.engine.bpmn._write_variable(
+                                writers, bvalue.get("flowScopeKey", -1),
+                                bvalue, mi.output_collection, collection)
+                    writers.append_event(tok.key, ValueType.PROCESS_INSTANCE,
+                                         PI.ELEMENT_COMPLETED, bvalue)
+                    continue
+                if element.element_type == BpmnElementType.PROCESS:
+                    # child-root placeholder drained: the called process
+                    # instance completes. Delegate to the sequential PROCESS
+                    # completion wholesale — COMPLETING, subscription close,
+                    # child locals, COMPLETED, then _on_process_completed's
+                    # variable propagation into the caller plus the call
+                    # activity's COMPLETE_ELEMENT command (which the call
+                    # row's own "done" op pairs with one step later)
+                    writers.append_command(tok.key, ValueType.PROCESS_INSTANCE,
+                                           PI.COMPLETE_ELEMENT, {})
+                    self._mark_last_command_processed(builder)
+                    self.engine.bpmn._complete(tok.key, dict(tok.value), exe,
+                                               element, writers)
+                    self._mark_last_command_processed(builder)
+                    continue
+                if element.element_type == BpmnElementType.SUB_PROCESS:
+                    # scope drain completes through an internal command, like
+                    # the process root (mirror _check_scope_completion →
+                    # COMPLETE_ELEMENT → _complete)
+                    writers.append_command(tok.key, ValueType.PROCESS_INSTANCE,
+                                           PI.COMPLETE_ELEMENT, {})
+                    self._mark_last_command_processed(builder)
+                writers.append_event(tok.key, ValueType.PROCESS_INSTANCE,
+                                     PI.ELEMENT_COMPLETING, value)
+                if element.outputs:
+                    # output mappings run between COMPLETING and the
+                    # subscription close (mirror _complete's ordering).
+                    # Eligibility admits only safe expressions, so failure
+                    # is unreachable; if it ever happened the element stays
+                    # COMPLETING with the incident, and the already-routed
+                    # downstream tokens would diverge — log loudly.
+                    if not self.engine.bpmn._apply_output_mappings(
+                            tok.key, value, element, writers):
+                        logger.error(
+                            "output mapping failed on kernel path for %s — "
+                            "routing already committed; incident raised",
+                            element.id)
+                        continue
+                if element.boundary_idxs:
+                    # mirror _complete: subscriptions close between COMPLETING
+                    # and COMPLETED (TIMER CANCELED / subscription DELETED)
+                    self.engine.bpmn._close_subscriptions(tok.key, value, writers)
+                writers.append_event(tok.key, ValueType.PROCESS_INSTANCE,
+                                     PI.ELEMENT_COMPLETED, value)
+            elif kind == "scopearr":
+                seg = inst.info.call_segment(e)
+                if seg is not None:
+                    # call activity activation: delegate to the sequential
+                    # CALL_ACTIVITY handler wholesale (ACTIVATING, ACTIVATED,
+                    # the child root's ACTIVATE command, variable propagation
+                    # events — CallActivityProcessor parity), then bind the
+                    # spawned device token to the child-root command
+                    mark = len(builder.follow_ups)
+                    self.engine.bpmn._activate(tok.key, dict(tok.value), exe,
+                                               element, writers)
+                    child_entry = None
+                    child_at = -1
+                    for i in range(mark, len(builder.follow_ups)):
+                        entry = builder.follow_ups[i]
+                        if (entry.record.is_command
+                                and entry.record.value_type == ValueType.PROCESS_INSTANCE):
+                            child_entry, child_at = entry, i
+                            break
+                    if child_entry is None:
+                        # incident (called definition vanished — admission
+                        # freshness makes this unreachable): the device token
+                        # parks forever and the sequential path owns the call
+                        continue
+                    child_entry.processed = True
+                    toks[op[3]] = _Token(slot=-1, elem_idx=seg.root_row,
+                                         key=child_entry.record.key,
+                                         value=dict(child_entry.record.value),
+                                         act_idx=child_at)
+                    continue
+                # embedded sub-process activation: ACTIVATING/ACTIVATED, then
+                # the inner none-start activates via an internal command with
+                # the scope instance as its flow scope (mirror _activate's
+                # SUB_PROCESS branch → _write_activate). Child-root
+                # placeholder rows (non-root PROCESS elements) share this
+                # path: their element copy stamps the child process shape
+                writers.append_event(tok.key, ValueType.PROCESS_INSTANCE,
+                                     PI.ELEMENT_ACTIVATING, value)
+                if element.idx in inst.info.scope_esp_waits:
+                    # child-root placeholder with root ESPs: open the start
+                    # subscriptions between ACTIVATING and ACTIVATED via the
+                    # sequential behavior verbatim (inlining admits only
+                    # expression-free/static starts, so failure is
+                    # unreachable on state identical to the sequential run)
+                    if not self.engine.bpmn._open_scope_event_subscriptions(
+                            tok.key, value, exe, element, writers):
+                        logger.error(
+                            "inlined child ESP subscription open failed for "
+                            "%s — instance %s left ACTIVATING",
+                            element.id, tok.key)
+                        continue
+                writers.append_event(tok.key, ValueType.PROCESS_INSTANCE,
+                                     PI.ELEMENT_ACTIVATED, value)
+                start = exe.elements[element.child_start_idx]
+                child_key = state.next_key()
+                child_value = self._child_value(value, start, tok.key)
+                writers.append_command(child_key, ValueType.PROCESS_INSTANCE,
+                                       PI.ACTIVATE_ELEMENT, child_value)
+                if tables.kernel_op[d, start.idx] == K_HOST:
+                    # escaped inner start: the spawned device token parks
+                    # silently; the drain owns the scope's inside from here
+                    continue
+                self._mark_last_command_processed(builder)
+                toks[op[3]] = _Token(slot=-1, elem_idx=start.idx,
+                                     key=child_key, value=child_value,
+                                     act_idx=len(builder.follow_ups) - 1)
+            elif kind == "pass":
+                writers.append_event(tok.key, ValueType.PROCESS_INSTANCE,
+                                     PI.ELEMENT_ACTIVATING, value)
+                writers.append_event(tok.key, ValueType.PROCESS_INSTANCE,
+                                     PI.ELEMENT_ACTIVATED, value)
+                if element.script_expression is not None:
+                    # expression script task: evaluate + write the result
+                    # between ACTIVATED and COMPLETING, mirroring
+                    # BpmnProcessor._activate's script branch. Eligibility
+                    # admits only never-raises expressions, so failure is
+                    # unreachable; if it ever happened the sequential path
+                    # would raise an incident and the element would stay
+                    # ACTIVATED — log loudly, since downstream device ops
+                    # would then diverge.
+                    context = state.variables.collect(tok.key)
+                    try:
+                        result = element.script_expression.evaluate(
+                            context, self.engine.clock_millis)
+                    except FeelEvalError:
+                        logger.error(
+                            "safe script expression raised for %s — "
+                            "instance %s left ACTIVATED", element.id, tok.key)
+                        continue
+                    if element.script_result_variable:
+                        self.engine.bpmn._write_variable(
+                            writers, value.get("flowScopeKey", -1), value,
+                            element.script_result_variable, result)
+                writers.append_event(tok.key, ValueType.PROCESS_INSTANCE,
+                                     PI.ELEMENT_COMPLETING, value)
+                writers.append_event(tok.key, ValueType.PROCESS_INSTANCE,
+                                     PI.ELEMENT_COMPLETED, value)
+            elif kind == "flow":
+                fo, new_l = op[3], op[4]
+                fid = int(tables.out_flow_idx[d, e, fo])
+                if fid < 0:
+                    # synthetic link-jump edge: no SEQUENCE_FLOW_TAKEN — the
+                    # catch activates directly (engine _complete link branch)
+                    target_idx = int(tables.out_target[d, e, fo])
+                else:
+                    flow = exe.flows[fid]
+                    target_idx = flow.target_idx
+                    flow_value = {
+                        "bpmnProcessId": value["bpmnProcessId"],
+                        "version": value["version"],
+                        "processDefinitionKey": value["processDefinitionKey"],
+                        "processInstanceKey": value["processInstanceKey"],
+                        "elementId": flow.id,
+                        "flowScopeKey": value.get("flowScopeKey", -1),
+                        "bpmnElementType": BpmnElementType.SEQUENCE_FLOW.name,
+                        "bpmnEventType": BpmnEventType.UNSPECIFIED.name,
+                    }
+                    flow_key = state.next_key()
+                    writers.append_event(flow_key, ValueType.PROCESS_INSTANCE,
+                                         PI.SEQUENCE_FLOW_TAKEN, flow_value)
+                if new_l >= 0:
+                    target = exe.elements[target_idx]
+                    child_key = state.next_key()
+                    child_value = self._child_value(value, target,
+                                                    value.get("flowScopeKey", -1))
+                    writers.append_command(child_key, ValueType.PROCESS_INSTANCE,
+                                           PI.ACTIVATE_ELEMENT, child_value)
+                    if tables.kernel_op[d, target.idx] == K_HOST:
+                        # host escape: leave the ACTIVATE unprocessed — the
+                        # post-trace drain hands it (and its whole follow-up
+                        # chain) to the sequential engine
+                        continue
+                    self._mark_last_command_processed(builder)
+                    toks[new_l] = _Token(slot=-1, elem_idx=target.idx,
+                                         key=child_key, value=child_value,
+                                         act_idx=len(builder.follow_ups) - 1)
+            elif kind == "nomatch":
+                writers.append_event(tok.key, ValueType.PROCESS_INSTANCE,
+                                     PI.ELEMENT_ACTIVATING, value)
+                writers.append_event(tok.key, ValueType.PROCESS_INSTANCE,
+                                     PI.ELEMENT_ACTIVATED, value)
+                writers.append_event(tok.key, ValueType.PROCESS_INSTANCE,
+                                     PI.ELEMENT_COMPLETING, value)
+                incident_key = state.next_key()
+                writers.append_event(
+                    incident_key, ValueType.INCIDENT, IncidentIntent.CREATED,
+                    {
+                        "errorType": ErrorType.CONDITION_ERROR.name,
+                        "errorMessage": (
+                            "Expected at least one condition to evaluate to true, "
+                            f"or to have a default flow at gateway '{element.id}'"
+                        ),
+                        "bpmnProcessId": value.get("bpmnProcessId", ""),
+                        "processDefinitionKey": value.get("processDefinitionKey", -1),
+                        "processInstanceKey": value.get("processInstanceKey", -1),
+                        "elementId": value.get("elementId", ""),
+                        "elementInstanceKey": tok.key,
+                        "jobKey": -1,
+                        "variableScopeKey": tok.key,
+                    },
+                )
+
+    def _emit_job_created(self, inst: _Inst, tok: _Token, element: ExecutableElement,
+                          writers) -> None:
+        """Mirror BpmnProcessor._activate's job-worker task branch."""
+        state = self.engine.state
+        value = tok.value
+        job_key = state.next_key()
+        writers.append_event(
+            job_key, ValueType.JOB, JobIntent.CREATED,
+            {
+                "type": inst.info.job_types[element.idx],
+                "retries": inst.info.job_retries[element.idx],
+                "worker": "",
+                "deadline": -1,
+                "variables": {},
+                "customHeaders": element.task_headers,
+                "elementId": element.id,
+                "elementInstanceKey": tok.key,
+                "processInstanceKey": value["processInstanceKey"],
+                "processDefinitionKey": value["processDefinitionKey"],
+                "processDefinitionVersion": value["version"],
+                "bpmnProcessId": value["bpmnProcessId"],
+                "errorMessage": "",
+            },
+        )
+
+    def _emit_process_completed(self, inst: _Inst, writers, builder) -> None:
+        """Mirror _check_scope_completion → COMPLETE_ELEMENT(process) →
+        _complete(process) → _on_process_completed."""
+        from zeebe_tpu_torch.engine.bpmn import _pi_value
+
+        state = self.engine.state
+        bpmn = self.engine.bpmn
+        root = state.element_instances.get(inst.pi_key)
+        if root is None:
+            return
+        writers.append_command(inst.pi_key, ValueType.PROCESS_INSTANCE,
+                               PI.COMPLETE_ELEMENT, {})
+        self._mark_last_command_processed(builder)
+        process_el = inst.info.exe.root
+        value = _pi_value(dict(root["value"]), process_el)
+        writers.append_event(inst.pi_key, ValueType.PROCESS_INSTANCE,
+                             PI.ELEMENT_COMPLETING, value)
+        if inst.info.root_esp_start_idxs:
+            # mirror _complete: root ESP start subscriptions close when the
+            # process leaves ACTIVATED
+            bpmn._close_subscriptions(inst.pi_key, value, writers)
+        child_locals = state.variables.locals_of(inst.pi_key)
+        writers.append_event(inst.pi_key, ValueType.PROCESS_INSTANCE,
+                             PI.ELEMENT_COMPLETED, value)
+        bpmn._on_process_completed(inst.pi_key, value, child_locals or {}, writers)
+        inst.done_emitted = True
+    # end of the copy
+
+
+#: the group bucket rounding (the backend's)
+_pow2 = KernelBackend._pow2

@@ -9,9 +9,10 @@ TestStreams (writes commands directly to the log), ProcessingExporterTransistor
 Also the module the bench and the gateway-less demo drive — the reference uses
 EngineRule for its CI perf gate (EngineLargeStatePerformanceTest) the same way.
 
-The port's harness is the reference's with one difference: the batched
-kernel backend (``use_kernel_backend=True``) raises ``NotImplementedError``
-until its admission and materialization are ported. The broker-side helpers
+The port's harness is the reference's with one addition: ``device``, the
+device of the batched kernel backend (``use_kernel_backend=True``), passed
+to ``KernelBackend``. ``None`` is CUDA, and raises where CUDA is missing;
+``"cpu"`` runs the plain PyTorch version. The broker-side helpers
 (``await_*``, ``distributing_client``) come with the broker. The workloads
 the smoke run and the tests share are in ``testing.workloads``.
 """
@@ -66,12 +67,14 @@ class EngineHarness:
         clock: ControlledClock | None = None,
         use_kernel_backend: bool = False,
         mesh_runner=None,
+        device=None,
     ) -> None:
         if use_kernel_backend:
-            # the batched backend's admission and materialization are not
-            # ported yet: refuse, before opening anything, rather than run
-            # the sequential engine where the caller asked for the device
-            raise NotImplementedError("kernel backend: ROADMAP A2")
+            # the backend's device, resolved before anything is opened:
+            # None is CUDA, and raises where CUDA is missing
+            from zeebe_tpu_torch.ops.automaton import resolve_device
+
+            device = resolve_device(device)
         self._tmp = None
         if directory is None:
             self._tmp = tempfile.TemporaryDirectory()
@@ -85,6 +88,18 @@ class EngineHarness:
         self.exporter = RecordingExporter()
         self.responses: list = []
         kernel_backend = None
+        if use_kernel_backend:
+            from zeebe_tpu_torch.engine.kernel_backend import KernelBackend
+
+            # audit mode: every burst-template hit ALSO runs the slow path
+            # and asserts byte/state/response equality — the whole test suite
+            # continuously cross-checks the template codegen
+            # small group bucket: tests drive few instances at a time, and
+            # the kernel pads every group to the max-group geometry
+            kernel_backend = KernelBackend(self.engine, max_group=64,
+                                           audit_templates=True,
+                                           mesh_runner=mesh_runner,
+                                           device=device)
         self.kernel_backend = kernel_backend
         self.processor = StreamProcessor(
             self.stream,
@@ -317,7 +332,8 @@ class MultiPartitionHarness:
 
     def __init__(self, partition_count: int = 3, directory: str | Path | None = None,
                  consistency_checks: bool = True,
-                 use_kernel_backend: bool = False, mesh_runner=None) -> None:
+                 use_kernel_backend: bool = False, mesh_runner=None,
+                 device=None) -> None:
         from zeebe_tpu_torch.parallel.partitioning import InProcessClusterSender
 
         self._tmp = None
@@ -340,6 +356,7 @@ class MultiPartitionHarness:
                 consistency_checks=consistency_checks,
                 use_kernel_backend=use_kernel_backend,
                 mesh_runner=mesh_runner,
+                device=device,
             )
             h.cluster = self
             self.partitions[pid] = h

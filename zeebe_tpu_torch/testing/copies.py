@@ -18,11 +18,19 @@ state, journal and log stream, observability, exporters, backup,
 partitioning, the engine, the stream processor. The harness
 (``testing/__init__.py``) and the profiler's device half
 (``observability/profiler.py``) are rewritten for the port, not copied.
+
+``engine/kernel_backend.py`` is part copy, part rewrite. Its copied parts
+are ``KERNEL_BACKEND_RUNS``: runs of consecutive reference definitions
+(module level, or members of ``KernelBackend``), each written between a
+``# copied from the reference: <first> .. <last>`` line and an
+``# end of the copy`` line of the port's file, with the same rule. The
+port's own code around them is left as it is.
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
 import re
 import sys
 from pathlib import Path
@@ -44,6 +52,7 @@ ENGINE_STACK = (
     "observability/span.py", "observability/tracer.py", "observability/timeseries.py",
     "observability/flight_recorder.py", "observability/lineage.py",
     "observability/critical_path.py", "testing/evidence.py", "observability/alerts.py",
+    "testing/chaos_disk.py",
     "observability/auditor.py", "observability/__init__.py",
     "exporters/api.py", "exporters/recording.py", "exporters/director.py",
     "exporters/elasticsearch.py", "exporters/__init__.py",
@@ -58,6 +67,23 @@ ENGINE_STACK = (
     "stream/api.py", "stream/processor.py", "stream/__init__.py",
 )
 
+KERNEL_BACKEND = "engine/kernel_backend.py"
+
+#: (class, or None for the module; first definition; last definition)
+KERNEL_BACKEND_RUNS = (
+    (None, "_py_pack_fingerprint", "_CANDIDATE_COMMANDS"),
+    (None, "_Token", "_Admitted"),
+    (None, "_PendingGroup", "_PendingGroup"),
+    ("KernelBackend", "is_candidate", "_definition_of"),
+    ("KernelBackend", "_admit", "_build_group_arrays"),
+    ("KernelBackend", "_observe_compile", "_observe_compile"),
+    ("KernelBackend", "device_status", "note_group_success"),
+    ("KernelBackend", "_materialize", "_emit_process_completed"),
+)
+
+BEGIN = "# copied from the reference: {} .. {}"
+END = "# end of the copy"
+
 _TAG = re.compile(r" ?(?:by )?\(?\b(?:ISSUE|PR) \d+(?: satellite)?\)?")
 
 
@@ -66,6 +92,53 @@ def as_copied(text: str) -> str:
     text = text.replace("zeebe_tpu.", "zeebe_tpu_torch.")
     text = text.replace("from zeebe_tpu import ", "from zeebe_tpu_torch import ")
     return _TAG.sub("", text)
+
+
+def definition_name(node: ast.AST) -> str | None:
+    """The name a top-level or class-level statement defines, if one."""
+    if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+        return node.name
+    if isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name):
+        return node.targets[0].id
+    if isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+        return node.target.id
+    return None
+
+
+def definitions(text: str, scope: str | None) -> list[ast.AST]:
+    """The statements of the module, or of its class ``scope``."""
+    body = ast.parse(text).body
+    if scope is None:
+        return body
+    return next(n for n in body if isinstance(n, ast.ClassDef) and n.name == scope).body
+
+
+def source_lines(text: str, node: ast.AST) -> tuple[int, int]:
+    """A definition's first line (decorators included) and last line."""
+    first = min([node.lineno] + [d.lineno for d in getattr(node, "decorator_list", [])])
+    return first, node.end_lineno
+
+
+def reference_run(text: str, scope: str | None, first: str, last: str) -> str:
+    """The reference's text from definition ``first`` through ``last``."""
+    body = definitions(text, scope)
+    names = [definition_name(n) for n in body]
+    start = source_lines(text, body[names.index(first)])[0]
+    end = source_lines(text, body[names.index(last)])[1]
+    return "".join(text.splitlines(keepends=True)[start - 1:end])
+
+
+def splice_runs(port: str, reference: str) -> str:
+    """The port's kernel backend with each copied run rewritten from the
+    reference text."""
+    lines = port.splitlines(keepends=True)
+    for scope, first, last in KERNEL_BACKEND_RUNS:
+        begin = BEGIN.format(first, last)
+        i = next(k for k, line in enumerate(lines) if line.strip() == begin)
+        j = next(k for k in range(i + 1, len(lines)) if lines[k].strip() == END)
+        run = as_copied(reference_run(reference, scope, first, last))
+        lines[i + 1:j] = run.splitlines(keepends=True)
+    return "".join(lines)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -83,6 +156,13 @@ def main(argv: list[str] | None = None) -> int:
         if not args.check:
             dst.parent.mkdir(parents=True, exist_ok=True)
             dst.write_text(want)
+    backend = PORT / KERNEL_BACKEND
+    text = backend.read_text()
+    want = splice_runs(text, (REFERENCE / KERNEL_BACKEND).read_text())
+    if want != text:
+        stale.append(KERNEL_BACKEND)
+        if not args.check:
+            backend.write_text(want)
     for rel in stale:
         print(("differs: " if args.check else "wrote: ") + rel)
     return 1 if args.check and stale else 0
