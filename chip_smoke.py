@@ -73,7 +73,38 @@ exit) if any phase fails:
     launched; records/s and instances/s beside phase 10's, groups, commands
     on the kernel, template hits and misses, chunk launches and the compile
     seam's first-dispatch seconds;
-12. prints the kernels line (JSON), then the card line, then the result line.
+12. the replicated cluster, deterministic: ``InProcessCluster`` of 3
+    brokers, 3 partitions and replication factor 3 (the reference's default
+    cluster; Zeebe's published benchmark layout) on a controlled clock over
+    the loopback network, each leader's ``KernelBackend(max_group=2048,
+    chunk_steps=8)`` on the card; phase 10's definitions deployed on
+    partition 1 and distributed, 3,000 instances through the leaders'
+    client ingress (1,000 a partition, round robin, x = i mod 30), every
+    job activated and completed in waves of up to 1,000 per type. Every
+    instance completes, each partition's log is byte-identical on its three
+    replicas and to the same cluster run with ``kernel_backend=False`` on
+    the same schedule, every definition is 100% on the kernel with no group
+    declined, and the link-aware router sent no group to the host and
+    counted every group on the card; then the same schedule once more with
+    one mesh runner of 3 shards injected into every broker (B7 through the
+    broker, as ``ClusterRuntime`` injects it): its logs byte-identical to
+    the sequential cluster's too, ``sharded_collect`` launched; records/s
+    and instances/s for the cluster and per partition beside the
+    sequential cluster's, groups, commands per group, ``k_chunk`` launches,
+    the router's stats (the measured link) and the shadow checks;
+13. the gateway's runtime answers requests: ``ClusterRuntime`` of the same
+    shape with one mesh runner of 3 shards on the card and a 2 ms batch
+    window (B7 through the broker, the partitions' groups coalescing), its
+    partition threads started; through ``submit``: the deployment, 600
+    creations (27 one at a time, one a partition and process, so that the
+    partitions' kernel registries hold equal table sets; the rest from 8
+    client threads; each awaited), then activations and completions until
+    every instance completes. Fails on a rejected or
+    timed-out request, an instance not completed, or no
+    ``sharded_collect`` launch; prints request latency p50/p99, the mesh
+    runner's dispatches and coalesced share, the router's counts and the
+    card's busy share of the phase (``torch.profiler``);
+14. prints the kernels line (JSON), then the card line, then the result line.
 
 Three paths run the automaton's steps (``ops/kernels.py``): the fused
 chunk, one thread-block cluster per shard and ONE launch per chunk, for
@@ -105,13 +136,15 @@ Imports neither JAX nor the JAX package. Launch counts are zeroed right
 before each main path runs (phase 4 for step and run_collect, phase 5 for
 run_to_completion, phase 7 for sharded_step and sharded_collect, phase 8's
 ``batch_evaluate`` at the benchmark's geometry for decision, phase 11 for
-run_collect on the serving write path) and read right after; comparison
+run_collect on the serving write path, phases 12 and 13 for run_collect
+and sharded_collect on the cluster) and read right after; comparison
 launches, and phase 10's traced ``run_group``, do not count. Each entry of
 the kernels line names its path and its grid launches per call;
 run_collect's also its launches on the serving write path
-(``engine_launches``), run_to_completion's its live steps and its time per
-live lock-step beside that step's bound, and decision's the serial
-layout's time.
+(``engine_launches``), run_collect's and sharded_collect's their launches
+on the cluster (``cluster_launches``), run_to_completion's its live steps
+and its time per live lock-step beside that step's bound, and decision's
+the serial layout's time.
 """
 
 from __future__ import annotations
@@ -128,11 +161,14 @@ import time
 import numpy as np
 import torch
 
+from zeebe_tpu_torch.broker.broker import Broker, InProcessCluster
+from zeebe_tpu_torch.broker.partition import BackpressureExceeded
 from zeebe_tpu_torch.dmn import parse_dmn_xml
 from zeebe_tpu_torch.engine import kernel_backend as kb
 from zeebe_tpu_torch.engine.device_health import SUSPECT, reset_shared_device_health
+from zeebe_tpu_torch.gateway import ClusterRuntime
 from zeebe_tpu_torch.logstreams import LogAppendEntry
-from zeebe_tpu_torch.models.bpmn import Bpmn, transform
+from zeebe_tpu_torch.models.bpmn import Bpmn, to_bpmn_xml, transform
 from zeebe_tpu_torch.observability import profiler as P
 from zeebe_tpu_torch.ops import automaton as A
 from zeebe_tpu_torch.ops import decision as D
@@ -141,12 +177,18 @@ from zeebe_tpu_torch.ops.tables import compile_tables, f64_key_planes
 from zeebe_tpu_torch.parallel import mesh as M
 from zeebe_tpu_torch.parallel import mesh_runner as MR
 from zeebe_tpu_torch.protocol import ValueType, command
-from zeebe_tpu_torch.protocol.intent import JobIntent, ProcessInstanceCreationIntent
-from zeebe_tpu_torch.protocol.intent import ProcessInstanceIntent
+from zeebe_tpu_torch.protocol.intent import (
+    DeploymentIntent,
+    JobBatchIntent,
+    JobIntent,
+    ProcessInstanceCreationIntent,
+    ProcessInstanceIntent,
+)
 from zeebe_tpu_torch.testing import EngineHarness
 from zeebe_tpu_torch.testing import workloads as W
 from zeebe_tpu_torch.testing.catalog import ProcessCatalog
 from zeebe_tpu_torch.testing.chaos_device import DeviceChaosController, DeviceFaultPlan
+from zeebe_tpu_torch.utils.device_link import shared_router
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # H100 SXM int32 rate: 64 integer add/compare/logic results per clock per SM
@@ -1606,9 +1648,14 @@ def phase_serving(card: str, sequential: dict, n_instances: int = 2000) -> dict:
     phase 10's sequential log, every instance complete, every one of the
     nine definitions 100% on the kernel path, no group declined for any
     reason, nothing shadow-quarantined, and ``k_chunk`` launched (counts
-    zeroed right before the run, read right after)."""
+    zeroed right before the run, read right after). The backend takes the
+    process-wide router, whose link is measured once per process (a child
+    process) before the timed run, as phase 2 loads the kernel library."""
     reset_shared_device_health()
     kb.install_device_chaos(None)
+    router = shared_router()
+    router.accel_device()
+    routed = (router.host_groups, router.accel_groups)
     before = compile_seconds()
     A.reset_launch_counts()
     got = phase_engine(card, n_instances, kernel=True)
@@ -1631,6 +1678,10 @@ def phase_serving(card: str, sequential: dict, n_instances: int = 2000) -> dict:
                              f"{backend.shadow_quarantined} shadow-quarantined")
     if launches["run_collect"] <= 0 or grid["fused"] != launches["run_collect"]:
         raise AssertionError(f"phase11: k_chunk launches {launches['run_collect']}, grid {grid}")
+    host, accel = router.host_groups - routed[0], router.accel_groups - routed[1]
+    if host != 0 or accel != backend.groups_processed:
+        raise AssertionError(f"phase11: router host_groups {host}, accel_groups {accel} "
+                             f"against {backend.groups_processed} groups; {router.stats()}")
     compiles = {b: (n - before.get(b, (0, 0.0))[0], s - before.get(b, (0, 0.0))[1])
                 for b, (n, s) in compile_seconds().items() if n > before.get(b, (0, 0.0))[0]}
     health = backend.health
@@ -1645,10 +1696,473 @@ def phase_serving(card: str, sequential: dict, n_instances: int = 2000) -> dict:
         f"({launches['step']} lock-steps); shadow checks {health.shadow_checks}, "
         f"0 mismatches; first dispatch per bucket (compile seam) "
         f"{ {b: s for b, (n, s) in compiles.items()} } s; sequential heads "
-        f"{dict(acct.reasons)}")
+        f"{dict(acct.reasons)}; router groups this phase: host {host}, card {accel}")
     return {"records_per_s": got["records_per_s"], "instances_per_s": got["instances_per_s"],
             "launches": launches["run_collect"], "groups": backend.groups_processed,
             "commands": backend.commands_processed, "compiles": compiles}
+
+
+# ---------------------------------------------------------------------------
+# phases 12-13: the replicated broker cluster
+
+#: the reference's default cluster (``zeebe_tpu/broker/broker.py:996-997``)
+#: and the layout of Zeebe's published benchmark setup (camunda/zeebe
+#: ``benchmarks/setup/default/zeebe-values.yaml``): 3 brokers, 3 partitions,
+#: replication factor 3
+CLUSTER_SHAPE = {"broker_count": 3, "partition_count": 3, "replication_factor": 3}
+PARTITIONS = CLUSTER_SHAPE["partition_count"]
+
+
+def serving_models() -> list:
+    """Phase 10's definitions: one_task and the 8-definition mixed set."""
+    return [W.one_task()] + W.mixed_definitions()
+
+
+def deploy_command(models):
+    return command(ValueType.DEPLOYMENT, DeploymentIntent.CREATE, {"resources": [
+        {"resourceName": f"{m.process_id}.bpmn", "resource": to_bpmn_xml(m)} for m in models]})
+
+
+def create_command(process_id: str, x: int):
+    return command(ValueType.PROCESS_INSTANCE_CREATION, ProcessInstanceCreationIntent.CREATE,
+                   {"bpmnProcessId": process_id, "version": -1, "variables": {"x": x}})
+
+
+def activate_command(job_type: str, max_jobs: int = 1000):
+    return command(ValueType.JOB_BATCH, JobBatchIntent.ACTIVATE,
+                   {"type": job_type, "worker": "smoke", "timeout": 300_000,
+                    "maxJobsToActivate": max_jobs})
+
+
+def job_types(models) -> list[str]:
+    return sorted({el.job_type.evaluate({}, lambda: 0)
+                   for m in models for el in transform(m).elements[1:]
+                   if el.job_type is not None})
+
+
+def cluster_write(cluster, commands) -> int:
+    """Write (partition id, record) pairs in order through each leader's
+    client ingress (the gateway's path: backpressure-gated); while the
+    limiter refuses or a partition has no leader, run the cluster 50 ms.
+    Returns the refusals."""
+    refused = 0
+    for pid, record in commands:
+        for _ in range(2000):
+            broker = cluster.leader_broker(pid)
+            try:
+                if broker is not None and broker.write_command(pid, record) is not None:
+                    break
+            except BackpressureExceeded:
+                refused += 1
+            cluster.run(50)
+        else:
+            raise AssertionError(f"partition {pid} refused a command for 100 s")
+    return refused
+
+
+def settle(cluster, step: int = 50, quiet: int = 2) -> None:
+    """Run the cluster until every partition leader has committed and
+    materialized all it appended, and no leader's log grows and no
+    processor advances for ``quiet`` steps of ``step`` ms in a row."""
+    last, still = None, 0
+    for _ in range(100_000):
+        cluster.run(step)
+        leaders = [cluster.leader(pid) for pid in range(1, PARTITIONS + 1)]
+        now = tuple(None if p is None else (p.stream.last_position,
+                                            p.processor.last_processed_position,
+                                            p._next_position)
+                    for p in leaders)
+        caught_up = None not in now and all(s + 1 == n for s, _, n in now)
+        still = still + 1 if now == last and caught_up else 0
+        if still >= quiet:
+            return
+        last = now
+    raise AssertionError("the cluster did not settle")
+
+
+def process_records(partition, cursor: int = 0):
+    """(position, record) of a replica's stream after ``cursor``."""
+    for logged in partition.stream.new_reader(cursor + 1):
+        yield logged.position, logged.record
+
+
+def drive_cluster(cluster, models, n_instances: int) -> dict:
+    """Phase 10's traffic on a cluster: the definitions deployed on partition
+    1 (distributed to the others), ``n_instances`` creations round robin
+    over the partitions and the processes (x = i mod 30), then job waves:
+    on every partition one activation of up to 1,000 jobs per type, every
+    activated job completed, until a wave activates none."""
+    pids = [m.process_id for m in models]
+    refused = cluster_write(cluster, [(1, deploy_command(models))])
+    settle(cluster)
+    refused += cluster_write(cluster, [(i % PARTITIONS + 1, create_command(pids[i % len(pids)],
+                                                                           i % 30))
+                                       for i in range(n_instances)])
+    settle(cluster)
+    types = job_types(models)
+    cursors = {pid: 0 for pid in range(1, PARTITIONS + 1)}
+    waves = jobs_done = 0
+    while True:
+        refused += cluster_write(cluster, [(pid, activate_command(t))
+                                           for pid in range(1, PARTITIONS + 1) for t in types])
+        settle(cluster)
+        completions = []
+        for pid in range(1, PARTITIONS + 1):
+            for position, rec in process_records(cluster.leader(pid), cursors[pid]):
+                cursors[pid] = position
+                if (rec.value_type == ValueType.JOB_BATCH
+                        and rec.intent == JobBatchIntent.ACTIVATED):
+                    completions += [(pid, command(ValueType.JOB, JobIntent.COMPLETE,
+                                                  {"variables": {}}, key=key))
+                                    for key in rec.value["jobKeys"]]
+        if not completions:
+            break
+        waves += 1
+        refused += cluster_write(cluster, completions)
+        settle(cluster)
+        jobs_done += len(completions)
+        if waves > 64:
+            raise AssertionError("the cluster's job waves did not drain")
+    return {"waves": waves, "jobs": jobs_done, "refused": refused}
+
+
+def partition_outcome(partition) -> dict:
+    """A replica's log (position, source position, processed flag, record
+    bytes) and its instances created and completed."""
+    log_records, created, completed = [], 0, 0
+    for logged in partition.stream.new_reader(1):
+        rec = logged.record
+        log_records.append((logged.position, logged.source_position, logged.processed,
+                            rec.to_bytes()))
+        if (rec.value_type == ValueType.PROCESS_INSTANCE_CREATION
+                and rec.intent == ProcessInstanceCreationIntent.CREATED):
+            created += 1
+        elif (rec.value_type == ValueType.PROCESS_INSTANCE
+              and rec.intent == ProcessInstanceIntent.ELEMENT_COMPLETED
+              and rec.value.get("bpmnElementType") == "PROCESS"):
+            completed += 1
+    return {"log": log_records, "created": created, "completed": completed}
+
+
+def run_cluster(n_instances: int, kernel: bool, device, mesh_shards: int = 0) -> dict:
+    """One run of phase 12's traffic on ``InProcessCluster`` (3 brokers, 3
+    partitions, replication factor 3, controlled clock, loopback network):
+    the wall from deployment to the last completion, every replica's
+    outcome and the leaders' kernel backends. ``mesh_shards`` > 0 injects
+    one mesh runner of that many shards into every broker (the broker's
+    ``mesh_runner``, as ``ClusterRuntime`` injects its own)."""
+    from contextlib import nullcontext
+    from unittest import mock
+
+    models = serving_models()
+    runner = MR.MeshKernelRunner(n_shards=mesh_shards, device=device) if mesh_shards else None
+    injected = (mock.patch.object(Broker, "_mesh_runner", lambda broker: runner)
+                if runner is not None else nullcontext())
+    with tempfile.TemporaryDirectory() as tmp:
+        with injected:
+            cluster = InProcessCluster(**CLUSTER_SHAPE, directory=tmp, kernel_backend=kernel,
+                                       device=device)
+        try:
+            cluster.await_leaders()
+            t0 = time.perf_counter()
+            traffic = drive_cluster(cluster, models, n_instances)
+            if kernel and torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            cluster.run(1_000)  # the followers learn the last commit
+            replicas = {pid: {node: partition_outcome(b.partitions[pid])
+                              for node, b in sorted(cluster.brokers.items())}
+                        for pid in range(1, PARTITIONS + 1)}
+            leaders = {pid: cluster.leader_broker(pid).cfg.node_id
+                       for pid in range(1, PARTITIONS + 1)}
+            backends = {pid: cluster.leader(pid).processor.kernel_backend
+                        for pid in range(1, PARTITIONS + 1)}
+        finally:
+            cluster.close()
+    return {"wall": wall, "traffic": traffic, "replicas": replicas, "leaders": leaders,
+            "backends": backends, "mesh": runner}
+
+
+def kernel_outcome(run: dict, label: str) -> dict:
+    """The leaders' backends of one kernel run: every definition 100% on
+    the kernel path, no group declined and nothing shadow-quarantined
+    (raises otherwise); their groups and commands."""
+    backends = list(run["backends"].values())
+    coverage: dict[str, list] = {}
+    declined: dict[str, int] = {}
+    for backend in backends:
+        for definition, slot in backend.accounting.per_definition.items():
+            agg = coverage.setdefault(definition, [0, 0])
+            agg[0] += slot[0]
+            agg[1] += slot[1]
+        for reason, n in backend.accounting.reasons.items():
+            if not reason.startswith(SEQUENTIAL_HEADS):
+                declined[reason] = declined.get(reason, 0) + n
+    pids = [m.process_id for m in serving_models()]
+    if any(coverage.get(p, [0, 1])[0] == 0 or coverage.get(p, [0, 1])[1] for p in pids):
+        raise AssertionError(f"phase12: kernel coverage not 100% ({label}): {coverage}")
+    quarantined = sum(b.shadow_quarantined for b in backends)
+    if declined or quarantined:
+        raise AssertionError(f"phase12: groups declined {declined}, {quarantined} quarantined "
+                             f"({label})")
+    return {"groups": sum(b.groups_processed for b in backends),
+            "commands": sum(b.commands_processed for b in backends),
+            "health": backends[0].health}
+
+
+def phase_cluster(card: str, n_instances: int = 3000, device="cuda") -> dict:
+    """Phase 12: the replicated cluster on the card, deterministic. The same
+    traffic runs on a sequential cluster (``kernel_backend=False``), on
+    the kernel cluster, whose leaders' ``KernelBackend(max_group=2048,
+    chunk_steps=8)`` run on ``device``, and on the kernel cluster with one
+    3-shard mesh runner injected into every broker. Fails unless every
+    instance completes, each partition's log is byte-identical on its three
+    replicas and, in both kernel clusters, to the sequential cluster's,
+    every definition is 100% on the kernel path with no group declined or
+    quarantined, the router sent no group to the host and counted every
+    group of the kernel cluster on the card, and the mesh cluster's groups
+    ran on ``sharded_collect``."""
+    router = shared_router()
+    runs = {}
+    for label, kernel, shards in (("sequential", False, 0), ("kernel", True, 0),
+                                  ("mesh", True, PARTITIONS)):
+        reset_shared_device_health()
+        kb.install_device_chaos(None)
+        before = (router.host_groups, router.accel_groups)
+        A.reset_launch_counts()
+        runs[label] = run_cluster(n_instances, kernel, device, shards)
+        runs[label]["launches"] = A.launch_counts()
+        runs[label]["router"] = (router.host_groups - before[0],
+                                 router.accel_groups - before[1])
+    seq, got, mesh = runs["sequential"], runs["kernel"], runs["mesh"]
+    for pid in range(1, PARTITIONS + 1):
+        for label, run in runs.items():
+            replicas = list(run["replicas"][pid].values())
+            if any(r["log"] != replicas[0]["log"] for r in replicas[1:]):
+                raise AssertionError(f"phase12: partition {pid}'s replicas differ ({label})")
+        la = next(iter(seq["replicas"][pid].values()))["log"]
+        for label in ("kernel", "mesh"):
+            lb = next(iter(runs[label]["replicas"][pid].values()))["log"]
+            if la != lb:
+                diverged = next((i for i, (x, y) in enumerate(zip(la, lb)) if x != y),
+                                min(len(la), len(lb)))
+                raise AssertionError(f"phase12: partition {pid}'s log differs from the "
+                                     f"sequential cluster's at record {diverged} ({label}: "
+                                     f"{len(lb)} against {len(la)})")
+    created = sum(next(iter(got["replicas"][p].values()))["created"]
+                  for p in range(1, PARTITIONS + 1))
+    completed = sum(next(iter(got["replicas"][p].values()))["completed"]
+                    for p in range(1, PARTITIONS + 1))
+    if created != n_instances or completed != n_instances:
+        raise AssertionError(f"phase12: {created} created, {completed} completed of "
+                             f"{n_instances}")
+    single = kernel_outcome(got, "kernel")
+    sharded = kernel_outcome(mesh, "mesh")
+    groups, commands, health = single["groups"], single["commands"], single["health"]
+    host, accel = got["router"]
+    if host != 0 or accel != groups:
+        raise AssertionError(f"phase12: router host_groups {host}, accel_groups {accel} "
+                             f"against {groups} groups; {router.stats()}")
+    runner = mesh["mesh"]
+    mesh_launches = mesh["launches"]["sharded_collect"]
+    if mesh_launches <= 0 or mesh["launches"]["run_collect"] or mesh["router"] != (0, 0):
+        raise AssertionError(f"phase12: mesh cluster launches {mesh['launches']}, router "
+                             f"{mesh['router']}")
+
+    def rates(run) -> str:
+        per = {}
+        for pid in range(1, PARTITIONS + 1):
+            records = len(next(iter(run["replicas"][pid].values()))["log"])
+            per[pid] = records / run["wall"]
+        total = sum(len(next(iter(run["replicas"][p].values()))["log"])
+                    for p in range(1, PARTITIONS + 1))
+        return (f"{total / run['wall']:.1f} records/s, {n_instances / run['wall']:.1f} "
+                f"instances/s (per partition records/s "
+                f"{ {p: round(r, 1) for p, r in per.items()} })")
+
+    records = sum(len(next(iter(got["replicas"][p].values()))["log"])
+                  for p in range(1, PARTITIONS + 1))
+    log(f"phase12 replicated cluster [{card}]: InProcessCluster 3 brokers x 3 partitions x "
+        f"replication 3 on {device}, one_task + mixed set, {n_instances} instances "
+        f"({completed} completed), {got['traffic']['jobs']} jobs in "
+        f"{got['traffic']['waves']} waves, {records} records per replica set; logs identical "
+        f"on the 3 replicas and to the sequential cluster's; kernel cluster {rates(got)} in "
+        f"{got['wall']:.3f} s against the sequential cluster's {rates(seq)} in "
+        f"{seq['wall']:.3f} s ({seq['wall'] / got['wall']:.2f}x); leaders {got['leaders']}; "
+        f"{groups} groups, {commands} commands on the kernel "
+        f"({commands / max(groups, 1):.1f} a group), every definition 100% on the kernel; "
+        f"k_chunk launches {got['launches']['run_collect']} "
+        f"({got['launches']['step']} lock-steps); client refusals by backpressure "
+        f"{got['traffic']['refused']} (sequential {seq['traffic']['refused']}); router "
+        f"{router.stats()} (link put {router.link_put_s} s, get {router.link_get_s} s; this "
+        f"phase host {host}, card {accel}); shadow checks {health.shadow_checks}, "
+        f"mismatches {health.shadow_mismatches}")
+    log(f"phase12 mesh cluster [{card}]: the same schedule with one 3-shard mesh runner in "
+        f"every broker: logs identical on the 3 replicas and to the sequential cluster's; "
+        f"{rates(mesh)} in {mesh['wall']:.3f} s ({seq['wall'] / mesh['wall']:.2f}x the "
+        f"sequential cluster); {sharded['groups']} groups, {sharded['commands']} commands on "
+        f"the kernel, every definition 100% on the kernel; mesh runner {runner.dispatches} "
+        f"dispatches of {runner.groups_dispatched} groups, {runner.coalesced_dispatches} "
+        f"coalesced; sharded_collect launches {mesh_launches}, run_collect 0; router this "
+        f"run host 0, card 0 (mesh groups bypass it)")
+    return {"records_per_s": records / got["wall"], "instances_per_s": n_instances / got["wall"],
+            "seq_records_per_s": records / seq["wall"], "launches": got["launches"]["run_collect"],
+            "mesh_launches": mesh_launches, "groups": groups, "commands": commands}
+
+
+def runtime_deployed(runtime, models) -> bool:
+    """Whether every partition leader has every process deployed (read
+    under each partition's ownership lock)."""
+    for pid in range(1, PARTITIONS + 1):
+        with runtime._plocks[pid]:
+            leader = runtime._leader_partition(pid)
+            if leader is None or leader.db is None:
+                return False
+            with leader.db.transaction():
+                if any(leader.engine.state.processes.latest_version(m.process_id) is None
+                       for m in models):
+                    return False
+    return True
+
+
+def runtime_outcome(runtime) -> dict:
+    """Per partition leader: instances created and completed in its log."""
+    out = {}
+    for pid in range(1, PARTITIONS + 1):
+        with runtime._plocks[pid]:
+            leader = runtime._leader_partition(pid)
+            got = partition_outcome(leader)
+        out[pid] = (got["created"], got["completed"])
+    return out
+
+
+def percentile(values: list[float], q: float) -> float:
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(q * len(ordered)))]
+
+
+#: phase 13's mesh batch window, phase 7's
+MESH_WINDOW_S = 0.002
+
+
+def phase_runtime(card: str, n_requests: int = 600, device="cuda", clients: int = 8) -> dict:
+    """Phase 13: the gateway's runtime answers requests. ``ClusterRuntime``
+    (3 brokers, 3 partitions, replication factor 3) with one mesh runner of
+    3 shards on ``device`` and a 2 ms batch window, its partition threads
+    started; through ``submit``: the deployment, ``n_requests`` creations
+    (one a partition and process one at a time, which gives the partitions'
+    kernel registries equal table sets, then the rest from ``clients``
+    client threads; each request awaited), then per wave one activation per
+    partition and job type and every job's completion, until every instance
+    completes. Fails on a timed-out or rejected request, an instance not
+    completed, or no ``sharded_collect`` launch. Reports request latency,
+    the mesh runner's dispatches and the card's busy share of the phase
+    (``torch.profiler``, CUDA activity)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torch.profiler import ProfilerActivity, profile
+
+    models = serving_models()
+    pids = [m.process_id for m in models]
+    on_card = torch.device(device).type == "cuda"
+    router = shared_router()
+    before = (router.host_groups, router.accel_groups)
+    reset_shared_device_health()
+    kb.install_device_chaos(None)
+    A.reset_launch_counts()
+    runtime = ClusterRuntime(**CLUSTER_SHAPE, kernel_mesh_shards=PARTITIONS, device=device)
+    # the dispatch leader waits 2 ms for the other partitions' groups, as
+    # phase 7's runner does, so that they coalesce into one dispatch
+    runtime.mesh_runner.batch_window_s = MESH_WINDOW_S
+    latencies: dict[str, list[float]] = {"warm": [], "create": [], "activate": [],
+                                         "complete": []}
+
+    def submit(kind: str, pid: int, record):
+        t0 = time.perf_counter()
+        response = runtime.submit(pid, record, timeout_s=30.0)
+        latencies[kind].append(time.perf_counter() - t0)
+        if response.is_rejection:
+            raise AssertionError(f"phase13: {kind} rejected: {response.rejection_type.name} "
+                                 f"{response.value}")
+        return response
+
+    try:
+        runtime.start()
+        submit("create", 1, deploy_command(models))
+        latencies["create"].clear()
+        deadline = time.monotonic() + 60.0
+        while not runtime_deployed(runtime, models):
+            if time.monotonic() > deadline:
+                raise AssertionError("phase13: the deployment did not reach every partition")
+            time.sleep(0.01)
+        activity = [ProfilerActivity.CUDA] if on_card else [ProfilerActivity.CPU]
+        with profile(activities=activity) as prof, ThreadPoolExecutor(clients) as pool:
+            t0 = time.perf_counter()
+            # first one creation a partition and process, one at a time:
+            # each partition's kernel registry grows as its definitions are
+            # first touched, so touching all nine in one order gives the
+            # partitions equal table sets, whose groups may share a dispatch
+            warm = [(pid, process) for pid in range(1, PARTITIONS + 1) for process in pids]
+            for i, (pid, process) in enumerate(warm):
+                submit("warm", pid, create_command(process, i % 30))
+            for f in [pool.submit(submit, "create", i % PARTITIONS + 1,
+                                  create_command(pids[i % len(pids)], i % 30))
+                      for i in range(len(warm), n_requests)]:
+                f.result()
+            waves = 0
+            while True:
+                jobs = []
+                for pid in range(1, PARTITIONS + 1):
+                    for t in job_types(models):
+                        batch = submit("activate", pid, activate_command(t))
+                        jobs += [(pid, key) for key in batch.value["jobKeys"]]
+                if not jobs:
+                    break
+                waves += 1
+                for f in [pool.submit(submit, "complete", pid, command(
+                        ValueType.JOB, JobIntent.COMPLETE, {"variables": {}}, key=key))
+                          for pid, key in jobs]:
+                    f.result()
+                if waves > 64:
+                    raise AssertionError("phase13: the job waves did not drain")
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        outcome = runtime_outcome(runtime)
+        mesh = runtime.mesh_runner
+        stats = (mesh.dispatches, mesh.groups_dispatched, mesh.coalesced_dispatches)
+    finally:
+        runtime.stop()
+    launches = A.launch_counts()
+    created = sum(c for c, _ in outcome.values())
+    completed = sum(d for _, d in outcome.values())
+    if created != n_requests or completed != n_requests:
+        raise AssertionError(f"phase13: {created} created, {completed} completed of "
+                             f"{n_requests} ({outcome})")
+    busy_ms = None
+    if on_card:
+        busy_ms = sum(e.device_time_total for e in prof.key_averages()
+                      if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                      ) / 1e3
+    busy = None if not busy_ms else busy_ms / (wall * 1e3)
+    lat = {k: (1e3 * percentile(v, 0.5), 1e3 * percentile(v, 0.99)) for k, v in latencies.items()
+           if v}
+    log(f"phase13 gateway runtime [{card}]: ClusterRuntime 3 brokers x 3 partitions x "
+        f"replication 3, one 3-shard mesh runner on {device}; {n_requests} creations, "
+        f"{len(latencies['warm'])} of them one at a time (one a partition and process), the "
+        f"rest from {clients} client threads, every one answered ({completed} instances completed, "
+        f"{sum(len(v) for k, v in latencies.items() if k == 'complete')} jobs in {waves} "
+        f"waves) in {wall:.3f} s; request latency ms p50/p99 "
+        f"{ {k: (round(a, 3), round(b, 3)) for k, (a, b) in lat.items()} }; mesh runner "
+        f"({MESH_WINDOW_S * 1e3} ms window) {stats[0]} dispatches of {stats[1]} groups, "
+        f"{stats[2]} coalesced ({pct(stats[2] / max(stats[0], 1))} of dispatches, "
+        f"{stats[1] / max(stats[0], 1):.3f} groups a dispatch); sharded_collect "
+        f"launches {launches['sharded_collect']}, run_collect {launches['run_collect']}; "
+        f"router this phase host {router.host_groups - before[0]}, card "
+        f"{router.accel_groups - before[1]} (mesh groups bypass it); card busy "
+        f"{pct(busy)} of the phase ({busy_ms} ms of kernels and copies, torch.profiler)")
+    return {"launches": launches["sharded_collect"], "latency": lat, "mesh": stats,
+            "busy": busy, "wall": wall}
 
 
 def main() -> int:
@@ -1701,6 +2215,8 @@ def main() -> int:
     phase_telemetry(slice_info, dev, card)
     sequential = phase_engine(card)
     serving = phase_serving(card, sequential)
+    cluster = phase_cluster(card)
+    runtime = phase_runtime(card)
     timing["decision"] = {**decision["bench"]}
     worst["decision"] = decision["err"]
     log(f"sharded timings [{card}] at {N_SHARDS} shards of the serving geometry: "
@@ -1762,6 +2278,14 @@ def main() -> int:
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on its main path")
+    # the cluster's path: the leaders' groups (phase 12), the partitions'
+    # groups through the brokers' mesh runner (phase 12's mesh cluster and
+    # phase 13's runtime, each counted from 0)
+    cluster_counts = {"run_collect": cluster["launches"],
+                      "sharded_collect": cluster["mesh_launches"] + runtime["launches"]}
+    for name, n in cluster_counts.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the cluster's path")
     kernels_line = []
     for name in KERNELS:
         t = ceiling if name == "run_to_completion" else timing[name]
@@ -1782,6 +2306,10 @@ def main() -> int:
         if name == "run_collect":
             # k_chunk's launches on the serving write path (phase 11)
             kernels_line[-1].update(engine_launches=serving["launches"])
+        if name in cluster_counts:
+            # its launches on the replicated cluster (phase 12: the leaders'
+            # groups; phase 13: the runtime's mesh runner)
+            kernels_line[-1].update(cluster_launches=cluster_counts[name])
         if name == "decision":
             kernels_line[-1].update(serial_ms=t["serial_ms"], profiled_ms=t["profiled_ms"],
                                     serial_profiled_ms=t["serial_profiled_ms"])

@@ -1,0 +1,216 @@
+"""The port's replicated broker cluster is the reference's, copied; what
+differs is named here.
+
+Every module of ``testing/copies.py``'s ``CLUSTER_STACK`` equals
+``as_copied`` of its reference. The partition, the broker and the gateway's
+cluster runtime are partial copies (``PARTIAL_COPIES``): their marked runs
+are what the copy script writes, and every other reference member is in
+``PORT_MEMBERS`` below: either the reference's member plus the kernel
+backend's ``device`` (and, on ``InProcessCluster``, ``kernel_backend``) —
+held to the reference's with those names taken out — or rewritten whole,
+with the reason. Also here: no module of the port's broker, cluster,
+gateway, control or utilities packages loads JAX, the reference or gRPC.
+"""
+
+from __future__ import annotations
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from test_torch_tables import as_copied
+from zeebe_tpu_torch.testing import copies
+
+REPO = Path(__file__).resolve().parents[1]
+REF = REPO / "zeebe_tpu"
+PORT = REPO / "zeebe_tpu_torch"
+
+#: the port's members of each partial copy outside its copied runs, by
+#: (class or None, name): the names the port adds to the reference's member
+#: (an argument, a keyword passed on, an attribute or a field), or the
+#: reason it is rewritten whole
+PORT_MEMBERS = {
+    "broker/partition.py": {
+        ("ZeebePartition", "__init__"): {"device"},
+        ("ZeebePartition", "_transition"): {"device"},
+    },
+    "broker/broker.py": {
+        (None, "BrokerCfg"): {"device"},
+        (None, "_auto_device_count"): "counts the CUDA cards in the probe's child; 1 on the CPU",
+        ("Broker", "_mesh_runner"): {"device"},
+        ("Broker", "_create_partition"): {"device"},
+        ("InProcessCluster", "__init__"): {"device", "kernel_backend"},
+        ("InProcessCluster", "add_broker"): {"device", "kernel_backend"},
+    },
+    "gateway/broker_client.py": {
+        ("ClusterRuntime", "__init__"): {"device"},
+    },
+}
+#: imports a partial copy adds to the reference's
+ADDED_IMPORTS = {
+    "broker/partition.py": {"from zeebe_tpu_torch.ops.automaton import resolve_device"},
+    "broker/broker.py": {"import torch"},
+    "gateway/broker_client.py": set(),
+}
+PARTIAL = sorted(PORT_MEMBERS)
+
+
+@pytest.mark.parametrize("path", copies.CLUSTER_STACK)
+def test_cluster_module_is_a_copy(path):
+    assert (PORT / path).read_text() == as_copied((REF / path).read_text())
+
+
+@pytest.mark.parametrize("path", PARTIAL)
+def test_copied_runs_are_the_scripts(path):
+    text = (PORT / path).read_text()
+    runs = copies.PARTIAL_COPIES[path]
+    assert copies.splice_runs(text, (REF / path).read_text(), runs) == text
+    for scope, first, last in runs:
+        assert copies.BEGIN.format(first, last) in text
+
+
+def _copied(text: str, runs) -> set:
+    """(scope, name) of every definition inside a copied run."""
+    out = set()
+    for scope, first, last in runs:
+        body = copies.definitions(text, scope)
+        i, j = copies.run_span(body, first, last)
+        out |= {(scope, copies.definition_name(n)) for n in body[i:j + 1]}
+    return out - {(s, None) for s, _, _ in runs}
+
+
+def _members(text: str, classes) -> dict:
+    """(scope, name) → node of every named module-level statement and of
+    every member of ``classes``; a class docstring as ``<doc>``."""
+    out = {}
+    for node in ast.parse(text).body:
+        name = copies.definition_name(node)
+        if name is None:
+            continue
+        if isinstance(node, ast.ClassDef) and name in classes:
+            for m in node.body:
+                if isinstance(m, ast.Expr) and isinstance(m.value, ast.Constant):
+                    out[(name, "<doc>")] = m
+                elif copies.definition_name(m) is not None:
+                    out[(name, copies.definition_name(m))] = m
+        else:
+            out[(None, name)] = node
+    return out
+
+
+def _texts(path: str) -> tuple[str, str]:
+    return as_copied((REF / path).read_text()), (PORT / path).read_text()
+
+
+def _classes(path: str) -> set:
+    return {s for s, _, _ in copies.PARTIAL_COPIES[path] if s}
+
+
+@pytest.mark.parametrize("path", PARTIAL)
+def test_every_member_is_copied_or_named(path):
+    ref, port = _texts(path)
+    classes = _classes(path)
+    copied = _copied(ref, copies.PARTIAL_COPIES[path])
+    named = set(PORT_MEMBERS[path])
+    ref_members, port_members = _members(ref, classes), _members(port, classes)
+    # a class holding copied runs is compared member by member
+    outside = {k for k in ref_members if not (k[0] is None and k[1] in classes)}
+    assert outside - copied - {(c, "<doc>") for c in classes} == named
+    assert set(port_members) == set(ref_members)
+    for key in [k for k in ref_members if k[1] == "<doc>"]:
+        assert ast.dump(port_members[key]) == ast.dump(ref_members[key])
+
+
+class _Without(ast.NodeTransformer):
+    """A member without the names the port adds: the argument and its
+    default, the keyword passed on, the attribute set on ``self`` and the
+    dataclass field."""
+
+    def __init__(self, names: set) -> None:
+        self.names = names
+
+    def visit_arguments(self, node: ast.arguments) -> ast.arguments:
+        first = len(node.args) - len(node.defaults)
+        kept = [(a, d) for a, d in zip(node.args[first:], node.defaults)
+                if a.arg not in self.names]
+        node.args = node.args[:first] + [a for a, _ in kept]
+        node.defaults = [d for _, d in kept]
+        return self.generic_visit(node)
+
+    def visit_Call(self, node: ast.Call) -> ast.Call:
+        node.keywords = [k for k in node.keywords if k.arg not in self.names]
+        return self.generic_visit(node)
+
+    def visit_Assign(self, node: ast.Assign):
+        target = node.targets[0]
+        if (isinstance(target, ast.Attribute) and isinstance(target.value, ast.Name)
+                and target.value.id == "self" and target.attr in self.names):
+            return None
+        return self.generic_visit(node)
+
+    def visit_AnnAssign(self, node: ast.AnnAssign):
+        if isinstance(node.target, ast.Name) and node.target.id in self.names:
+            return None
+        return self.generic_visit(node)
+
+
+def _without(node: ast.AST, names: set) -> str:
+    tree = ast.parse(ast.unparse(node))
+    return ast.dump(_Without(names).visit(tree).body[0])
+
+
+EXTENDED = [(path, scope, name) for path in PARTIAL
+            for (scope, name), names in PORT_MEMBERS[path].items() if isinstance(names, set)]
+
+
+@pytest.mark.parametrize("path,scope,name", EXTENDED,
+                         ids=[f"{p}:{s or 'module'}.{n}" for p, s, n in EXTENDED])
+def test_member_is_the_references_plus_the_device(path, scope, name):
+    ref, port = _texts(path)
+    classes = _classes(path)
+    names = PORT_MEMBERS[path][(scope, name)]
+    ref_node = _members(ref, classes)[(scope, name)]
+    port_node = _members(port, classes)[(scope, name)]
+    assert _without(port_node, names) == _without(ref_node, names)
+    # and the port's member does take them
+    assert ast.dump(port_node) != ast.dump(ref_node)
+
+
+@pytest.mark.parametrize("path", PARTIAL)
+def test_imports_are_the_references_plus_the_named(path):
+    ref, port = _texts(path)
+
+    def imports(text):
+        return {ast.unparse(n) for n in ast.parse(text).body
+                if isinstance(n, (ast.Import, ast.ImportFrom))}
+
+    assert imports(port) == imports(ref) | ADDED_IMPORTS[path]
+
+
+_IMPORT_SCRIPT = """
+import importlib, pkgutil, sys
+import zeebe_tpu_torch
+names = []
+for package in ("broker", "cluster", "gateway", "control", "utils"):
+    pkg = importlib.import_module(f"zeebe_tpu_torch.{package}")
+    for info in pkgutil.iter_modules(pkg.__path__):
+        names.append(f"zeebe_tpu_torch.{package}.{info.name}")
+        importlib.import_module(names[-1])
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "zeebe_tpu", "grpc"))
+print("MODULES", len(names))
+print("LOADED", loaded)
+"""
+
+
+def test_cluster_packages_load_no_jax_reference_or_grpc():
+    """Every module of the port's broker, cluster, gateway, control and
+    utilities packages imports in a fresh interpreter, and none of them
+    loads JAX, the reference package or gRPC."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPT], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout
+    assert int(proc.stdout.split("MODULES ")[1].split()[0]) >= 24

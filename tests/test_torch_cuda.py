@@ -1069,3 +1069,36 @@ def test_launches_follow_the_tensors_card(second_card):
             assert all(np.array_equal(a[k], b[k]) for k in a)
         assert all(np.array_equal(g.state[k], c.state[k]) for k in g.state)
     assert torch.cuda.current_device() == 0
+
+
+def test_router_measures_the_card_and_keeps_serving_groups_there(cuda, clean_plane):
+    """The link-aware router measures the card in its child (an 8 KB put and
+    get, well under ``LOCAL_LINK_S``), names the current card as its
+    accelerator, and a kernel-backed harness on that card takes the shared
+    router by default: every group it runs is counted on the card, none on
+    the host."""
+    from zeebe_tpu_torch.testing import EngineHarness
+    from zeebe_tpu_torch.utils.device_link import BackendRouter, shared_router
+
+    router = BackendRouter()
+    accel = router.accel_device()
+    assert router.enabled and accel == torch.device("cuda", torch.cuda.current_device())
+    assert 0 < router.link_put_s and 0 < router.link_get_s
+    assert router.link_cost_s() < BackendRouter.LOCAL_LINK_S
+    assert router.choose(("t", 64, 64)) is accel
+    shared = shared_router()
+    before = (shared.host_groups, shared.accel_groups)
+    h = EngineHarness(use_kernel_backend=True, device=cuda)
+    try:
+        backend = h.kernel_backend
+        assert backend.router is shared
+        _drive_waves(h, [W.one_task()], 300)
+        assert shared.accel_device().index == (backend.device.index
+                                               if backend.device.index is not None
+                                               else torch.cuda.current_device())
+        groups = backend.groups_processed
+    finally:
+        h.close()
+    assert groups > 0
+    assert shared.host_groups == before[0]
+    assert shared.accel_groups - before[1] == groups

@@ -4,13 +4,14 @@ sequential engine; a shadow mismatch commits the host oracle's steps and
 latches SUSPECT; the ladder hears one clean group per committed group.
 
 The harness flows of ``tests/test_device_faults.py`` run on both packages
-(``tests/torch_kernel_flows.py``). Its flows that need the link-aware router
-or the control plane wait for ROADMAP A4 and stay out:
+(``tests/torch_kernel_flows.py``). Its four flows of the link-aware router
+and the control plane build no harness and run in
+``tests/test_torch_control.py``:
 ``test_canary_pins_accelerator_past_quarantine_host_bias``,
 ``test_accel_device_none_when_routing_disabled``,
 ``test_routing_controller_biases_on_device_state`` and
 ``test_routing_signals_stale_without_compile_telemetry``. The tests after
-them drive the port's harness alone, on the CPU.
+the flows drive the port's harness alone, on the CPU.
 """
 
 from __future__ import annotations

@@ -180,6 +180,9 @@ def as_copied(ref: str) -> str:
     comments and docstrings."""
     text = ref.replace("zeebe_tpu.", "zeebe_tpu_torch.")
     text = text.replace("from zeebe_tpu import ", "from zeebe_tpu_torch import ")
+    # a tag broken over two lines of a comment or a docstring
+    text = re.sub(r" ?\((?:ISSUE|PR)\n[ \t]*(?:# )?\d+\)", "", text)
+    text = re.sub(r",? (?:ISSUE|PR)\n[ \t]*(?:# )?\d+\)", ")", text)
     return re.sub(r" ?(?:by )?\(?\b(?:ISSUE|PR) \d+(?: satellite)?\)?", "", text)
 
 

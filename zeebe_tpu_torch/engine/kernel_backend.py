@@ -101,6 +101,7 @@ from zeebe_tpu_torch.protocol.intent import (
     TimerIntent,
 )
 from zeebe_tpu_torch.protocol.intent import ProcessInstanceIntent as PI
+from zeebe_tpu_torch.utils.device_link import shared_router
 
 logger = logging.getLogger(__name__)
 
@@ -1989,7 +1990,10 @@ class KernelBackend(DeviceDefense):
     """Admits groups of commands, runs the automaton kernel, materializes the
     sequential-equivalent record stream. One instance per partition, its
     groups on one device: CUDA unless ``device`` says otherwise (``"cpu"``
-    runs the plain PyTorch version). The device-fault seam is its base
+    runs the plain PyTorch version). On the card the link-aware router
+    (``router``, the process-wide one by default) pins canaries and counts
+    groups; a group it sends to the host is declined to the sequential
+    engine, never run on the CPU. The device-fault seam is its base
     class; the members below the constructor that the reference has are
     copies but for the device members (``_start_kernel``,
     ``_await_kernel``, ``_group_state``, ``_dispatch_first_chunk``,
@@ -1999,12 +2003,7 @@ class KernelBackend(DeviceDefense):
                  chunk_steps: int = 8, use_templates: bool = True,
                  audit_templates: bool = False,
                  max_commands_in_batch: int = 100,
-                 mesh_runner=None, router=None, device=None) -> None:
-        if router is not None:
-            # the reference's link-aware router (utils/device_link) chooses
-            # host or card per shape bucket; the port has no router yet
-            raise NotImplementedError("a link-aware backend router needs "
-                                      "utils.device_link: ROADMAP A4")
+                 mesh_runner=None, router="shared", device=None) -> None:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the kernel library is built and loaded here, so a card whose
@@ -2020,6 +2019,19 @@ class KernelBackend(DeviceDefense):
         self.max_group = max_group
         self.max_steps = max_steps
         self.chunk_steps = chunk_steps
+        # link-aware backend routing (utils/device_link.py), "shared" = the
+        # process-wide router. Every group runs on the backend's device. On
+        # the card, where the router would send a group to the host (a link
+        # slower than LOCAL_LINK_S, or the routing controller's host-ward
+        # bias), the group is declined to the sequential engine
+        # ("routed-host"): the reference runs its program on the host CPU
+        # there, the port moves no card work to the plain version. The
+        # router is fed counts, never times. A backend on the CPU has nothing
+        # to route and never consults the card (the reference's router is
+        # off where the host is the default backend).
+        if router == "shared":
+            router = shared_router() if self.device.type == "cuda" else None
+        self.router = router
         # shared MeshKernelRunner (parallel/mesh_runner.py): when set, this
         # partition's groups run as shards of ONE mesh dispatch, coalescing
         # with other partitions' concurrently submitted groups
@@ -2925,6 +2937,31 @@ class KernelBackend(DeviceDefense):
         # the bucket carries the table-set content digest: different
         # deployed sets are different programs
         pg.bucket = (self.registry.tables_fingerprint, pg.I, pg.T)
+        # link-aware choice: the card, or the host; None = routing off
+        route = None
+        if self.router is not None:
+            if pg.canary:
+                # a canary must probe the SUSPECT card: pin it rather than
+                # ask choose(), whose quarantine host-ward bias
+                # (route_threshold_s=+inf) would send the canary to the
+                # host — where it trivially byte-matches the host oracle
+                # and re-proves nothing
+                route = self.router.accel_device()
+            if route is None:
+                route = self.router.choose(pg.bucket)
+        if route is not None:
+            self.router.count(route)
+            if route.type == "cpu" and self.device.type == "cuda":
+                # the host's choice on the card: declined, typed, and a
+                # tick of the SUSPECT ladder's quiet window, as the
+                # reference's host-routed groups give it (a ladder biased
+                # host-ward would never clear otherwise)
+                self.health.note_host_reroute()
+                self.health.note_group_ok()
+                pg.failed = True
+                pg.fail_reason = "routed-host"
+                return
+        # the group runs on the backend's device whichever side was chosen
         pg.dev = self.device
         # chunk k+1 is dispatched before chunk k's rows are fetched only on
         # the card, where the device computes while the host decodes

@@ -55,6 +55,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -278,14 +279,19 @@ class _Lib:
 
 
 _LOADED: _Lib | None = None
+_LOAD_LOCK = threading.Lock()
 
 
 def load() -> _Lib:
     """Build (if needed) and load the library, once per process: the
-    sources are read and hashed at the first call only, not per launch."""
+    sources are read and hashed at the first call only, not per launch.
+    The partitions' pump threads may ask at once; one builds, the others
+    wait for it."""
     global _LOADED
     if _LOADED is None:
-        _LOADED = _Lib(build())
+        with _LOAD_LOCK:
+            if _LOADED is None:
+                _LOADED = _Lib(build())
     return _LOADED
 
 

@@ -150,8 +150,11 @@ class MeshKernelRunner:
     """Shared device-dispatch point for up to ``n_shards`` partitions."""
 
     def __init__(self, n_shards: int | None = None, mesh=None,
-                 batch_window_s: float = 0.0, adaptive_window: bool = False) -> None:
-        self.mesh = mesh if mesh is not None else make_mesh(n_shards)
+                 batch_window_s: float = 0.0, adaptive_window: bool = False,
+                 device=None) -> None:
+        # without a mesh, ``n_shards`` shard blocks on ``device`` (None = the
+        # current CUDA card; "cpu" runs the plain version)
+        self.mesh = mesh if mesh is not None else make_mesh(n_shards, device)
         self.n_shards = self.mesh.n_shards
         # > 0: the dispatch leader waits this long before draining the queue,
         # trading a little latency for more coalescing (tests use it to make

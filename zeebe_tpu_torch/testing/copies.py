@@ -19,10 +19,16 @@ partitioning, the engine, the stream processor. The harness
 (``testing/__init__.py``) and the profiler's device half
 (``observability/profiler.py``) are rewritten for the port, not copied.
 
-``engine/kernel_backend.py`` is part copy, part rewrite. Its copied parts
-are ``KERNEL_BACKEND_RUNS``: runs of consecutive reference definitions
-(module level, or members of ``KernelBackend``), each written between a
-``# copied from the reference: <first> .. <last>`` line and an
+``CLUSTER_STACK`` is the replicated broker cluster: the engine's
+migration and query services, the control plane, Raft, membership and
+topology, the broker's services, and the gateway's job streams.
+
+The files of ``PARTIAL_COPIES`` are part copy, part rewrite:
+``engine/kernel_backend.py`` (its device members), the partition, the
+broker and the gateway's cluster runtime (the kernel backend's ``device``
+they pass on). Their copied parts are runs of consecutive reference
+definitions (module level, or members of one class), each written between
+a ``# copied from the reference: <first> .. <last>`` line and an
 ``# end of the copy`` line of the port's file, with the same rule. The
 port's own code around them is left as it is.
 """
@@ -67,6 +73,17 @@ ENGINE_STACK = (
     "stream/api.py", "stream/processor.py", "stream/__init__.py",
 )
 
+CLUSTER_STACK = (
+    "engine/migration.py", "engine/query.py",
+    "control/actuators.py", "control/controllers.py", "control/plane.py",
+    "control/__init__.py",
+    "cluster/messaging.py", "cluster/membership.py", "cluster/raft.py", "cluster/topology.py",
+    "cluster/__init__.py",
+    "broker/backpressure.py", "broker/disk.py", "broker/scrubber.py", "broker/management.py",
+    "broker/config.py", "broker/__init__.py",
+    "gateway/jobstream.py",
+)
+
 KERNEL_BACKEND = "engine/kernel_backend.py"
 
 #: (class, or None for the module; first definition; last definition)
@@ -81,16 +98,48 @@ KERNEL_BACKEND_RUNS = (
     ("KernelBackend", "_materialize", "_emit_process_completed"),
 )
 
+#: (class, or None for the module; first definition; last definition) of
+#: the copied runs of the other partial copies; the members between runs
+#: are the port's, each the reference's with the kernel backend's device
+PARTIAL_COPIES = {
+    KERNEL_BACKEND: KERNEL_BACKEND_RUNS,
+    "broker/partition.py": (
+        (None, "DEFAULT_SNAPSHOT_PERIOD_MS", "_RaftWriter"),
+        ("ZeebePartition", "_on_raft_commit", "_on_role_change"),
+        ("ZeebePartition", "_finish_leader_recovery", "health"),
+    ),
+    "broker/broker.py": (
+        (None, "INTER_PARTITION_TOPIC", "COMMAND_API_TOPIC"),
+        (None, "_AUTO_DEVICE_COUNT", "_AUTO_DEVICE_COUNT"),
+        (None, "partition_distribution", "resolve_leader_partition"),
+        ("Broker", "__init__", "partition_guard"),
+        ("Broker", "_tiering_cfg", "_scrub_cfg"),
+        ("Broker", "_create_partition_for_join", "trigger_checkpoint"),
+        ("InProcessCluster", "run", "restart_broker"),
+        ("InProcessCluster", "close", "close"),
+    ),
+    "gateway/broker_client.py": (
+        (None, "logger", "GatewayRuntimeBase"),
+        ("ClusterRuntime", "_partition_guard", "_resolve"),
+    ),
+}
+
 BEGIN = "# copied from the reference: {} .. {}"
 END = "# end of the copy"
 
 _TAG = re.compile(r" ?(?:by )?\(?\b(?:ISSUE|PR) \d+(?: satellite)?\)?")
+# a tag broken over two lines of a comment or a docstring: in parentheses of
+# its own, or closing a parenthesis
+_SPLIT_TAG = re.compile(r" ?\((?:ISSUE|PR)\n[ \t]*(?:# )?\d+\)")
+_SPLIT_TAG_CLOSING = re.compile(r",? (?:ISSUE|PR)\n[ \t]*(?:# )?\d+\)")
 
 
 def as_copied(text: str) -> str:
     """The reference's text as the port copies it."""
     text = text.replace("zeebe_tpu.", "zeebe_tpu_torch.")
     text = text.replace("from zeebe_tpu import ", "from zeebe_tpu_torch import ")
+    text = _SPLIT_TAG.sub("", text)
+    text = _SPLIT_TAG_CLOSING.sub(")", text)
     return _TAG.sub("", text)
 
 
@@ -119,20 +168,27 @@ def source_lines(text: str, node: ast.AST) -> tuple[int, int]:
     return first, node.end_lineno
 
 
+def run_span(body: list[ast.AST], first: str, last: str) -> tuple[int, int]:
+    """Indices in ``body`` of the first definition named ``first`` and the
+    last named ``last`` (a property and its setter share a name)."""
+    names = [definition_name(n) for n in body]
+    return names.index(first), len(names) - 1 - names[::-1].index(last)
+
+
 def reference_run(text: str, scope: str | None, first: str, last: str) -> str:
     """The reference's text from definition ``first`` through ``last``."""
     body = definitions(text, scope)
-    names = [definition_name(n) for n in body]
-    start = source_lines(text, body[names.index(first)])[0]
-    end = source_lines(text, body[names.index(last)])[1]
+    i, j = run_span(body, first, last)
+    start = source_lines(text, body[i])[0]
+    end = source_lines(text, body[j])[1]
     return "".join(text.splitlines(keepends=True)[start - 1:end])
 
 
-def splice_runs(port: str, reference: str) -> str:
-    """The port's kernel backend with each copied run rewritten from the
-    reference text."""
+def splice_runs(port: str, reference: str, runs=KERNEL_BACKEND_RUNS) -> str:
+    """A partial copy (by default the kernel backend) with each copied run
+    rewritten from the reference text."""
     lines = port.splitlines(keepends=True)
-    for scope, first, last in KERNEL_BACKEND_RUNS:
+    for scope, first, last in runs:
         begin = BEGIN.format(first, last)
         i = next(k for k, line in enumerate(lines) if line.strip() == begin)
         j = next(k for k in range(i + 1, len(lines)) if lines[k].strip() == END)
@@ -147,7 +203,7 @@ def main(argv: list[str] | None = None) -> int:
                         help="list the copies that differ; write nothing")
     args = parser.parse_args(argv)
     stale = []
-    for rel in ENGINE_STACK:
+    for rel in ENGINE_STACK + CLUSTER_STACK:
         want = as_copied((REFERENCE / rel).read_text())
         dst = PORT / rel
         if dst.exists() and dst.read_text() == want:
@@ -156,13 +212,14 @@ def main(argv: list[str] | None = None) -> int:
         if not args.check:
             dst.parent.mkdir(parents=True, exist_ok=True)
             dst.write_text(want)
-    backend = PORT / KERNEL_BACKEND
-    text = backend.read_text()
-    want = splice_runs(text, (REFERENCE / KERNEL_BACKEND).read_text())
-    if want != text:
-        stale.append(KERNEL_BACKEND)
-        if not args.check:
-            backend.write_text(want)
+    for rel, runs in PARTIAL_COPIES.items():
+        dst = PORT / rel
+        text = dst.read_text()
+        want = splice_runs(text, (REFERENCE / rel).read_text(), runs)
+        if want != text:
+            stale.append(rel)
+            if not args.check:
+                dst.write_text(want)
     for rel in stale:
         print(("differs: " if args.check else "wrote: ") + rel)
     return 1 if args.check and stale else 0
