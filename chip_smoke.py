@@ -104,7 +104,22 @@ exit) if any phase fails:
     ``sharded_collect`` launch; prints request latency p50/p99, the mesh
     runner's dispatches and coalesced share, the router's counts and the
     card's busy share of the phase (``torch.profiler``);
-14. prints the kernels line (JSON), then the card line, then the result line.
+14. the gRPC front: the port's ``Gateway`` over a ``ClusterRuntime`` of
+    phase 13's shape built with no device argument (the card), the port's
+    ``ZeebeTpuClient`` against it: phase 10's nine definitions and one DMN
+    through ``DeployResource``, 600 ``CreateProcessInstance`` calls (27 one
+    at a time, each process once on each partition, the rest from 8 client
+    threads), one instance created and cancelled, one ``JobWorker`` per job
+    type over ``StreamActivatedJobs`` until every instance completes, then
+    ``Topology``, ``CreateProcessInstanceWithResult``, ``EvaluateDecision``
+    and ``PublishMessage``. Fails on a non-OK status, a failed job, an
+    instance not completed, instances or jobs the client saw that differ
+    from the leaders' logs, a group the router sent to the host, or no
+    ``sharded_collect`` launch; prints gRPC create latency beside phase
+    13's ``submit`` latency, the gateway's ``gateway_request_latency`` per
+    RPC, the mesh runner's dispatches and coalesced share, the router's
+    counts and the card's busy share;
+15. prints the kernels line (JSON), then the card line, then the result line.
 
 Three paths run the automaton's steps (``ops/kernels.py``): the fused
 chunk, one thread-block cluster per shard and ONE launch per chunk, for
@@ -136,13 +151,14 @@ Imports neither JAX nor the JAX package. Launch counts are zeroed right
 before each main path runs (phase 4 for step and run_collect, phase 5 for
 run_to_completion, phase 7 for sharded_step and sharded_collect, phase 8's
 ``batch_evaluate`` at the benchmark's geometry for decision, phase 11 for
-run_collect on the serving write path, phases 12 and 13 for run_collect
-and sharded_collect on the cluster) and read right after; comparison
+run_collect on the serving write path, phases 12, 13 and 14 for
+run_collect and sharded_collect on the cluster) and read right after; comparison
 launches, and phase 10's traced ``run_group``, do not count. Each entry of
 the kernels line names its path and its grid launches per call;
 run_collect's also its launches on the serving write path
 (``engine_launches``), run_collect's and sharded_collect's their launches
-on the cluster (``cluster_launches``), run_to_completion's its live steps
+on the cluster (``cluster_launches``) and of those phase 14's
+(``grpc_launches``), run_to_completion's its live steps
 and its time per live lock-step beside that step's bound, and decision's
 the serial layout's time.
 """
@@ -2165,6 +2181,233 @@ def phase_runtime(card: str, n_requests: int = 600, device="cuda", clients: int 
             "busy": busy, "wall": wall}
 
 
+def grpc_outcome(runtime) -> dict:
+    """Per the leaders' logs: the keys of the instances created, of those
+    completed and of those terminated, and of the jobs completed."""
+    out = {"created": set(), "completed": set(), "terminated": set(), "jobs": set()}
+    for pid in range(1, PARTITIONS + 1):
+        with runtime._plocks[pid]:
+            leader = runtime._leader_partition(pid)
+            for _, rec in process_records(leader):
+                if (rec.value_type == ValueType.PROCESS_INSTANCE_CREATION
+                        and rec.intent == ProcessInstanceCreationIntent.CREATED):
+                    out["created"].add(rec.value["processInstanceKey"])
+                elif (rec.value_type == ValueType.PROCESS_INSTANCE
+                      and rec.value.get("bpmnElementType") == "PROCESS"
+                      and rec.intent in (ProcessInstanceIntent.ELEMENT_COMPLETED,
+                                         ProcessInstanceIntent.ELEMENT_TERMINATED)):
+                    done = rec.intent == ProcessInstanceIntent.ELEMENT_COMPLETED
+                    out["completed" if done else "terminated"].add(rec.key)
+                elif rec.value_type == ValueType.JOB and rec.intent == JobIntent.COMPLETED:
+                    out["jobs"].add(rec.key)
+    return out
+
+
+def gateway_latency() -> tuple[tuple, dict]:
+    """The gateway's own ``gateway_request_latency``: its bucket edges and
+    per RPC (count, sum in seconds, bucket counts)."""
+    from zeebe_tpu_torch.utils.metrics import REGISTRY
+
+    histogram = REGISTRY._metrics.get("zeebe_gateway_request_latency")
+    if histogram is None:
+        return (), {}
+    return histogram.buckets, {c.label_values[0]: (c.count, c.sum, list(c.bucket_counts))
+                               for c in histogram._children_snapshot()}
+
+
+def phase_grpc(card: str, runtime_phase: dict, n_requests: int = 600, clients: int = 8,
+               device=None) -> dict:
+    """Phase 14: the gRPC front on the card. The port's ``Gateway`` on
+    127.0.0.1:0 over phase 13's ``ClusterRuntime`` shape built with no
+    device (the card) and the same 2 ms batch window, driven by the port's
+    ``ZeebeTpuClient``: phase 10's nine definitions and the DMN "band"
+    through ``DeployResource``; ``n_requests`` creations through
+    ``CreateProcessInstance`` (27 one at a time, each process once on each
+    partition, then the rest from ``clients`` client threads); one more
+    instance created and cancelled; then one ``JobWorker`` a job type over
+    ``StreamActivatedJobs`` completes jobs until every instance completes;
+    then one call each of ``Topology``, ``CreateProcessInstanceWithResult``,
+    ``EvaluateDecision`` and ``PublishMessage``. Fails on a non-OK status
+    (the client raises), a worker's failed job, an instance not completed,
+    instances or jobs the client saw that differ from the leaders' logs, a
+    group the router sent to the host, or no ``sharded_collect`` launch.
+    Prints create latency beside phase 13's ``submit`` latency, the
+    gateway's ``gateway_request_latency`` per RPC, the mesh runner's
+    dispatches and coalesced share, the router's counts and the card's
+    busy share of the phase (``torch.profiler``). ``device`` is given to
+    the runtime only where it is not None (a rehearsal on the CPU)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import google.protobuf
+    import grpc
+    from torch.profiler import ProfilerActivity, profile
+
+    from zeebe_tpu_torch.client import JobWorker, ZeebeTpuClient
+    from zeebe_tpu_torch.gateway import Gateway
+    from zeebe_tpu_torch.gateway.proto import gateway_pb2 as pb
+    from zeebe_tpu_torch.utils.metrics import estimate_quantile
+
+    models = serving_models()
+    pids = [m.process_id for m in models]
+    router = shared_router()
+    before = (router.host_groups, router.accel_groups)
+    _, latency_before = gateway_latency()
+    reset_shared_device_health()
+    kb.install_device_chaos(None)
+    A.reset_launch_counts()
+    on_card = device is None
+    runtime = ClusterRuntime(**CLUSTER_SHAPE, kernel_mesh_shards=PARTITIONS,
+                             **({} if on_card else {"device": device}))
+    runtime.mesh_runner.batch_window_s = MESH_WINDOW_S
+    gateway = Gateway(runtime)
+    client = None
+    workers: list = []
+    seen_jobs: set = set()
+    seen_lock = threading.Lock()
+    latencies: dict[str, list[float]] = {"warm": [], "create": []}
+
+    def create(kind: str, process: str, x: int) -> int:
+        t0 = time.perf_counter()
+        key = client.create_instance(process, variables={"x": x}).process_instance_key
+        latencies[kind].append(time.perf_counter() - t0)
+        return key
+
+    def handle(job) -> dict:
+        with seen_lock:
+            seen_jobs.add(job.key)
+        return {}
+
+    try:
+        runtime.start()
+        gateway.start()
+        client = ZeebeTpuClient(gateway.address, credentials_provider=False)
+        deployed = client.deploy_resource(
+            *[(f"{m.process_id}.bpmn", to_bpmn_xml(m)) for m in models],
+            ("band.dmn", W.dmn_band_xml()))
+        if (sorted(p["bpmnProcessId"] for p in deployed["processes"]) != sorted(pids)
+                or [d["decisionId"] for d in deployed["decisions"]] != ["band"]):
+            raise AssertionError(f"phase14: the deployment answered {deployed}")
+        deadline = time.monotonic() + 60.0
+        while not runtime_deployed(runtime, models):
+            if time.monotonic() > deadline:
+                raise AssertionError("phase14: the deployment did not reach every partition")
+            time.sleep(0.01)
+        activity = [ProfilerActivity.CUDA] if on_card else [ProfilerActivity.CPU]
+        with profile(activities=activity) as prof, ThreadPoolExecutor(clients) as pool:
+            t0 = time.perf_counter()
+            # CreateProcessInstance picks partitions round robin: each
+            # process three times in a row lands once on each partition, so
+            # every partition first touches the nine in one order (equal
+            # table sets, which may share a dispatch; phase 13)
+            warm = [process for process in pids for _ in range(PARTITIONS)]
+            keys = [create("warm", process, i % 30) for i, process in enumerate(warm)]
+            keys += [f.result() for f in [
+                pool.submit(create, "create", pids[i % len(pids)], i % 30)
+                for i in range(len(warm), n_requests)]]
+            cancelled = client.create_instance(pids[0]).process_instance_key
+            client.cancel_instance(cancelled)
+            created_s = time.perf_counter() - t0
+            workers = [JobWorker(client, t, handle, worker_name="smoke",
+                                 stream_enabled=True).start() for t in job_types(models)]
+            deadline = time.monotonic() + 120.0
+            while len(grpc_outcome(runtime)["completed"]) < n_requests:
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase14: the workers did not complete every instance")
+                time.sleep(0.05)
+            if on_card:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        topology = client.topology()
+        if (topology.cluster_size, topology.partitions_count) != (3, PARTITIONS) or sorted(
+                pid for b in topology.brokers for pid, role in b["partitions"].items()
+                if role == "LEADER") != list(range(1, PARTITIONS + 1)):
+            raise AssertionError(f"phase14: topology {topology}")
+        result = client.create_instance_with_result(pids[0], variables={"x": 7}, timeout_s=30)
+        keys.append(result.process_instance_key)
+        evaluate = client.channel.unary_unary(
+            "/gateway_protocol.Gateway/EvaluateDecision",
+            request_serializer=pb.EvaluateDecisionRequest.SerializeToString,
+            response_deserializer=pb.EvaluateDecisionResponse.FromString)
+        decision = evaluate(pb.EvaluateDecisionRequest(
+            decisionId="band", variables=json.dumps({"amount": 35, "tier": "gold"})))
+        if json.loads(decision.decisionOutput) != 3:
+            raise AssertionError(f"phase14: band(35, gold) = {decision.decisionOutput}")
+        if client.publish_message("smoke", "k-1", variables={"x": 1}) <= 0:
+            raise AssertionError("phase14: PublishMessage returned no key")
+        for w in workers:
+            w.stop()
+        failed = sum(w.failed_count for w in workers)
+        handled = sum(w.handled_count for w in workers)
+        outcome = grpc_outcome(runtime)
+        mesh = runtime.mesh_runner
+        stats = (mesh.dispatches, mesh.groups_dispatched, mesh.coalesced_dispatches)
+    finally:
+        for w in workers:
+            w.stop()
+        if client is not None:
+            client.close()
+        gateway.stop()
+        runtime.stop()
+    launches = A.launch_counts()
+    if failed:
+        raise AssertionError(f"phase14: the workers failed {failed} jobs")
+    if outcome["created"] != set(keys) | {cancelled} or outcome["terminated"] != {cancelled}:
+        raise AssertionError(f"phase14: {len(outcome['created'])} instances in the leaders' "
+                             f"logs, the client saw {len(keys) + 1}")
+    if outcome["completed"] != set(keys):
+        raise AssertionError(f"phase14: {len(outcome['completed'])} of {len(keys)} instances "
+                             f"completed")
+    if outcome["jobs"] != seen_jobs or handled != len(seen_jobs):
+        raise AssertionError(f"phase14: {len(outcome['jobs'])} jobs completed in the leaders' "
+                             f"logs, the workers handled {handled} ({len(seen_jobs)} keys)")
+    host = router.host_groups - before[0]
+    if host:
+        raise AssertionError(f"phase14: the router sent {host} groups to the host")
+    if launches["sharded_collect"] <= 0:
+        raise AssertionError("phase14: sharded_collect was not launched")
+    busy_ms = None
+    if on_card:
+        busy_ms = sum(e.device_time_total for e in prof.key_averages()
+                      if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+                      ) / 1e3
+    busy = busy_ms / (wall * 1e3) if busy_ms else None
+    lat = {k: (1e3 * percentile(v, 0.5), 1e3 * percentile(v, 0.99))
+           for k, v in latencies.items()}
+    rpcs = {}
+    edges, latency_after = gateway_latency()
+    for rpc, (count, total, buckets) in latency_after.items():
+        c0, s0, b0 = latency_before.get(rpc, (0, 0.0, [0] * len(buckets)))
+        counts = [b - a for a, b in zip(b0, buckets)]
+        if count > c0:
+            rpcs[rpc] = (count - c0, round(1e3 * (total - s0) / (count - c0), 3),
+                         round(1e3 * estimate_quantile(edges, counts, 0.5), 3),
+                         round(1e3 * estimate_quantile(edges, counts, 0.99), 3))
+    in_process = runtime_phase["latency"]["create"]
+    log(f"phase14 gRPC front [{card}]: Gateway over ClusterRuntime 3 brokers x 3 partitions "
+        f"x replication 3 on {'the card (no device argument)' if on_card else device}, one "
+        f"3-shard mesh runner; grpc {grpc.__version__}, protobuf "
+        f"{google.protobuf.__version__} (gateway_pb2's builder gencode loaded); "
+        f"{n_requests} CreateProcessInstance ({len(warm)} one at a time, the rest from "
+        f"{clients} client threads) in {created_s:.3f} s, one more created and cancelled, "
+        f"{len(workers)} JobWorkers over StreamActivatedJobs completed {handled} jobs, "
+        f"every instance complete, {wall:.3f} s in all; then Topology, "
+        f"CreateProcessInstanceWithResult, EvaluateDecision, PublishMessage answered OK; "
+        f"gRPC create latency ms p50/p99 {round(lat['create'][0], 3)}/"
+        f"{round(lat['create'][1], 3)} (one at a time {round(lat['warm'][0], 3)}/"
+        f"{round(lat['warm'][1], 3)}) beside phase 13's in-process submit "
+        f"{round(in_process[0], 3)}/{round(in_process[1], 3)}; gateway_request_latency "
+        f"per RPC (calls, mean ms, p50 ms, p99 ms by its buckets) {rpcs}; mesh runner "
+        f"({MESH_WINDOW_S * 1e3} ms window) {stats[0]} dispatches of {stats[1]} groups, "
+        f"{stats[2]} coalesced ({pct(stats[2] / max(stats[0], 1))} of dispatches); "
+        f"sharded_collect launches {launches['sharded_collect']}, run_collect "
+        f"{launches['run_collect']}; router this phase host {host}, card "
+        f"{router.accel_groups - before[1]}; card busy {pct(busy)} of the phase "
+        f"({busy_ms} ms of kernels and copies, torch.profiler)")
+    return {"launches": launches["sharded_collect"],
+            "run_collect_launches": launches["run_collect"], "latency": lat, "rpcs": rpcs,
+            "mesh": stats, "busy": busy, "wall": wall}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2217,6 +2460,7 @@ def main() -> int:
     serving = phase_serving(card, sequential)
     cluster = phase_cluster(card)
     runtime = phase_runtime(card)
+    front = phase_grpc(card, runtime)
     timing["decision"] = {**decision["bench"]}
     worst["decision"] = decision["err"]
     log(f"sharded timings [{card}] at {N_SHARDS} shards of the serving geometry: "
@@ -2278,11 +2522,13 @@ def main() -> int:
     for name, n in counts.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on its main path")
-    # the cluster's path: the leaders' groups (phase 12), the partitions'
-    # groups through the brokers' mesh runner (phase 12's mesh cluster and
-    # phase 13's runtime, each counted from 0)
-    cluster_counts = {"run_collect": cluster["launches"],
-                      "sharded_collect": cluster["mesh_launches"] + runtime["launches"]}
+    # the cluster's path: the leaders' groups (phase 12, and any phase 14
+    # group the mesh runner did not take), the partitions' groups through
+    # the brokers' mesh runner (phase 12's mesh cluster, phase 13's runtime
+    # and phase 14's gRPC front, each counted from 0)
+    cluster_counts = {"run_collect": cluster["launches"] + front["run_collect_launches"],
+                      "sharded_collect": cluster["mesh_launches"] + runtime["launches"]
+                      + front["launches"]}
     for name, n in cluster_counts.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the cluster's path")
@@ -2308,8 +2554,11 @@ def main() -> int:
             kernels_line[-1].update(engine_launches=serving["launches"])
         if name in cluster_counts:
             # its launches on the replicated cluster (phase 12: the leaders'
-            # groups; phase 13: the runtime's mesh runner)
-            kernels_line[-1].update(cluster_launches=cluster_counts[name])
+            # groups; phases 13 and 14: the runtime's mesh runner), and of
+            # those the gRPC front's (phase 14)
+            kernels_line[-1].update(cluster_launches=cluster_counts[name],
+                                    grpc_launches=front["launches"] if name == "sharded_collect"
+                                    else front["run_collect_launches"])
         if name == "decision":
             kernels_line[-1].update(serial_ms=t["serial_ms"], profiled_ms=t["profiled_ms"],
                                     serial_profiled_ms=t["serial_profiled_ms"])

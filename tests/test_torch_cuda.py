@@ -1102,3 +1102,54 @@ def test_router_measures_the_card_and_keeps_serving_groups_there(cuda, clean_pla
     assert groups > 0
     assert shared.host_groups == before[0]
     assert shared.accel_groups - before[1] == groups
+
+
+def test_grpc_front_on_the_card_answers_like_the_cpu(cuda, clean_plane):
+    """The port's ``Gateway`` over a ``ClusterRuntime`` built with no device
+    (the card) answers ``torch_gateway_flows``'s gRPC session as the same
+    session does on ``device="cpu"``, with ``sharded_collect`` launched on
+    the card; then a ``JobWorker`` over ``StreamActivatedJobs`` completes
+    the instances a client creates there."""
+    import threading
+
+    from torch_gateway_flows import PORT, drive_grpc
+    from zeebe_tpu_torch.client import JobWorker, ZeebeTpuClient
+    from zeebe_tpu_torch.gateway import ClusterRuntime, Gateway
+    from zeebe_tpu_torch.models.bpmn import to_bpmn_xml
+    from zeebe_tpu_torch.testing import distributing_client
+
+    A.reset_launch_counts()
+    card = drive_grpc(PORT)
+    launched = A.launch_counts()["sharded_collect"]
+    cpu = drive_grpc(PORT, device="cpu")
+    assert launched > 0
+    assert card["responses"] == cpu["responses"]
+    assert card["state"] == cpu["state"]
+
+    runtime = ClusterRuntime(broker_count=1, partition_count=2)
+    runtime.start()
+    partitions = runtime.brokers["broker-0"].partitions.values()
+    assert partitions and all(p.device.type == "cuda" for p in partitions)
+    gateway = Gateway(runtime)
+    gateway.start()
+    client = distributing_client(ZeebeTpuClient(gateway.address), runtime)
+    done = threading.Semaphore(0)
+
+    def handler(job):
+        done.release()
+        return {"seen": job.variables["i"]}
+
+    worker = None
+    try:
+        client.deploy_resource(("one_task.bpmn", to_bpmn_xml(W.one_task())))
+        worker = JobWorker(client, "work_one_task", handler, stream_enabled=True).start()
+        keys = [client.create_instance("one_task", variables={"i": i}).process_instance_key
+                for i in range(20)]
+        assert all(done.acquire(timeout=60) for _ in keys)
+        assert all(k > 0 for k in keys)
+    finally:
+        if worker is not None:
+            worker.stop()
+        client.close()
+        gateway.stop()
+        runtime.stop()

@@ -3,13 +3,12 @@
 Every module of the engine stack (``testing/copies.py``'s ``ENGINE_STACK``)
 equals ``as_copied`` of its reference. Every other file of the port with a
 counterpart in the reference either equals it the same way or is named in
-``REWRITTEN`` with the reason; for the two files rewritten in this slice
-(the profiler's device half and the harness, whose one addition is the
-kernel backend's ``device``) an AST test holds every member they keep to
-the reference. Also here: the kernel-backed harness needs a device where
-CUDA is missing, both harnesses run without JAX, and the profiler's device
-half on ``torch.cuda`` (CPU tests with fake devices and injected capture
-functions).
+``REWRITTEN`` with the reason; for the profiler's device half and the
+harness (whose one addition is the kernel backend's ``device``) an AST
+test holds every member they keep to the reference. Also here: the
+kernel-backed harness needs a device where CUDA is missing, both harnesses
+run without JAX, and the profiler's device half on ``torch.cuda`` (CPU
+tests with fake devices and injected capture functions).
 """
 
 from __future__ import annotations
@@ -44,13 +43,12 @@ REWRITTEN = {
     "engine/kernel_backend.py": "registry half and the backend's host members copied; "
                                 "the device half and the backend's device members on torch",
     "observability/profiler.py": "device list, memory gauges and trace capture on torch.cuda",
-    "testing/__init__.py": "the harness with the kernel backend's device; no broker helpers",
+    "testing/__init__.py": "the harness with the kernel backend's device",
     "utils/backend_probe.py": "the killable probe's child asks torch.cuda, not jax.devices()",
     "utils/device_link.py": "the router's card and host are torch devices; link timed on torch",
     "broker/partition.py": "partial copy: the kernel backend's device (test_torch_cluster_copies)",
     "broker/broker.py": "partial copy: BrokerCfg.device, the card count (test_torch_cluster_copies)",
     "gateway/broker_client.py": "partial copy: ClusterRuntime's device (test_torch_cluster_copies)",
-    "gateway/__init__.py": "exports ClusterRuntime only: the gRPC front is not ported yet",
 }
 
 
@@ -159,8 +157,6 @@ def test_profiler_rewrites_only_its_device_half():
     assert ast.dump(port["__init__"].args) == ast.dump(ref["__init__"].args)
 
 
-HARNESS_BROKER_HELPERS = {"_await_partition_resources", "await_resource_absent",
-                          "await_deployment_distributed", "distributing_client"}
 _HARNESS_REF = _top_level(as_copied((REF / "testing/__init__.py").read_text()))
 _HARNESS_PORT = _top_level((PORT / "testing/__init__.py").read_text())
 
@@ -195,7 +191,9 @@ def _without_device(node: ast.AST) -> str:
     return ast.dump(_WithoutDevice().visit(ast.parse(ast.unparse(node)).body[0]))
 
 
-@pytest.mark.parametrize("name", ["<imports>", "ControlledClock", "MultiPartitionHarness"])
+@pytest.mark.parametrize("name", ["<imports>", "ControlledClock", "MultiPartitionHarness",
+                                  "_await_partition_resources", "await_resource_absent",
+                                  "await_deployment_distributed", "distributing_client"])
 def test_harness_keeps_the_reference_member(name):
     port, ref = _HARNESS_PORT[name], _HARNESS_REF[name]
     if name == "MultiPartitionHarness":
@@ -215,8 +213,10 @@ def test_harness_keeps_every_engine_harness_member_but_the_kernel_branch():
 
 
 def test_harness_lacks_only_the_broker_helpers():
-    assert set(_HARNESS_REF) - set(_HARNESS_PORT) == HARNESS_BROKER_HELPERS
-    assert set(_HARNESS_PORT) <= set(_HARNESS_REF)
+    """The broker helpers (``await_*``, ``distributing_client``) are back
+    with the gateway: the harness has every member of the reference's and
+    no other."""
+    assert set(_HARNESS_PORT) == set(_HARNESS_REF)
 
 
 def test_kernel_backend_needs_a_device_without_cuda(tmp_path, monkeypatch):

@@ -174,12 +174,15 @@ COPIED = ("feel/temporal.py", "feel/feel.py", "feel/__init__.py", "models/bpmn/m
 
 
 def as_copied(ref: str) -> str:
-    """The reference's text as the port copies it: the package name in its
-    imports renamed (``zeebe_tpu.`` and ``from zeebe_tpu import``), and the
-    reference's history tags (an issue or pull request number) left out of
-    comments and docstrings."""
+    """The reference's text as the port copies it: the package name renamed
+    (``zeebe_tpu.`` and ``from zeebe_tpu import`` in its imports, and the
+    bare name quoted as a string or a literal: the logger hierarchy's root),
+    and the reference's history tags (an issue or pull request number) left
+    out of comments and docstrings."""
     text = ref.replace("zeebe_tpu.", "zeebe_tpu_torch.")
     text = text.replace("from zeebe_tpu import ", "from zeebe_tpu_torch import ")
+    text = text.replace('"zeebe_tpu"', '"zeebe_tpu_torch"')
+    text = text.replace("``zeebe_tpu``", "``zeebe_tpu_torch``")
     # a tag broken over two lines of a comment or a docstring
     text = re.sub(r" ?\((?:ISSUE|PR)\n[ \t]*(?:# )?\d+\)", "", text)
     text = re.sub(r",? (?:ISSUE|PR)\n[ \t]*(?:# )?\d+\)", ")", text)

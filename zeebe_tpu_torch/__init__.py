@@ -6,8 +6,16 @@ modules it needs (protocol, engine stack, BPMN model, FEEL parser,
 deploy-time table compiler) are kept as copies here
 (``testing/copies.py`` writes the engine stack's).
 
-Layer map, the sequential engine stack first (copies unless noted):
+Layer map, from the client down (copies unless noted):
 
+- ``client``              ``ZeebeTpuClient``, ``JobWorker``, credentials
+- ``gateway``             the gRPC front: ``Gateway``, ``GatewayService``,
+                          tenant authorization, OAuth, admission; and
+                          ``ClusterRuntime`` (partial copy: the kernel
+                          backend's ``device``)
+- ``broker``, ``cluster``, ``control``  brokers and partitions (partial
+                          copies: ``device``), Raft, membership, topology,
+                          the control plane
 - ``testing``             ``EngineHarness``, ``MultiPartitionHarness``,
                           ``ControlledClock`` (rewritten: the kernel
                           backend's ``device``)

@@ -1,8 +1,6 @@
-"""The gateway's in-process runtime: ``ClusterRuntime`` over the port's
-brokers. The gRPC front of the reference's package (``gateway.py`` and its
-protocol, authentication and admission modules) is not part of the port
-yet, so nothing here imports ``grpc``."""
+"""gRPC gateway: client API front-end (SURVEY §2.11)."""
 
 from zeebe_tpu_torch.gateway.broker_client import ClusterRuntime
+from zeebe_tpu_torch.gateway.gateway import Gateway, GatewayService
 
-__all__ = ["ClusterRuntime"]
+__all__ = ["ClusterRuntime", "Gateway", "GatewayService"]

@@ -7,9 +7,10 @@ CUDA, raising without it; ``"cpu"`` runs the plain version) and gives it to
 every broker and to the shared mesh runner.
 
 ``ClusterRuntime`` drives an in-process broker cluster on background threads
-(the brokers' actor loop equivalent): request threads submit commands and
-block on a response future; the pump threads advance raft/processing and
-resolve futures from each broker's response sink."""
+(the brokers' actor loop equivalent): gRPC handler threads (the port's
+``gateway.Gateway``) submit commands and block on a response future; the
+pump threads advance raft/processing and resolve futures from each broker's
+response sink."""
 
 from __future__ import annotations
 

@@ -12,9 +12,8 @@ EngineRule for its CI perf gate (EngineLargeStatePerformanceTest) the same way.
 The port's harness is the reference's with one addition: ``device``, the
 device of the batched kernel backend (``use_kernel_backend=True``), passed
 to ``KernelBackend``. ``None`` is CUDA, and raises where CUDA is missing;
-``"cpu"`` runs the plain PyTorch version. The broker-side helpers
-(``await_*``, ``distributing_client``) come with the broker. The workloads
-the smoke run and the tests share are in ``testing.workloads``.
+``"cpu"`` runs the plain PyTorch version. The workloads the smoke run and
+the tests share are in ``testing.workloads``.
 """
 
 from __future__ import annotations
@@ -431,3 +430,68 @@ class MultiPartitionHarness:
         for h in self.partitions.values():
             out.extend(h.exporter.all().to_list())
         return out
+
+
+def _await_partition_resources(runtime, process_ids, want_present: bool,
+                               what: str, timeout_s: float) -> None:
+    import time as _time
+
+    deadline = _time.time() + timeout_s
+    mismatched: list = [("*", "*")]
+    while _time.time() < deadline:
+        mismatched = []
+        for pid in range(1, runtime.partition_count + 1):
+            with runtime._plocks[pid]:
+                leader = runtime._leader_partition(pid)
+                if leader is None or leader.engine is None:
+                    mismatched.append((pid, "*"))
+                    continue
+                with leader.db.transaction():
+                    for process_id in process_ids:
+                        found = leader.engine.state.processes.get_latest_by_id(
+                            process_id) is not None
+                        if found != want_present:
+                            mismatched.append((pid, process_id))
+        if not mismatched:
+            return
+        _time.sleep(0.01)
+    raise TimeoutError(f"{what}: {mismatched}")
+
+
+def await_resource_absent(runtime, process_ids, timeout_s: float = 10.0) -> None:
+    """Inverse of await_deployment_distributed: block until NO partition
+    leader resolves the given process ids (resource DELETION distributes
+    asynchronously exactly like deployment)."""
+    _await_partition_resources(runtime, process_ids, want_present=False,
+                               what="resource deletion not distributed",
+                               timeout_s=timeout_s)
+
+
+def await_deployment_distributed(runtime, process_ids, timeout_s: float = 10.0) -> None:
+    """Block until every partition leader of an in-process ClusterRuntime can
+    resolve the given process ids. Deployment distribution is asynchronous by
+    design (the reference's DeploymentCreateProcessor responds on partition-1
+    commit and distributes afterwards — DeploymentCreateProcessor.java:166),
+    so a create-by-id racing the distribution to another partition is
+    legitimate NOT_FOUND behavior; tests that deploy-then-create on a
+    multi-partition cluster should wait this race out the same way the
+    reference's own tests await the RecordingExporter."""
+    _await_partition_resources(runtime, process_ids, want_present=True,
+                               what="deployment not distributed",
+                               timeout_s=timeout_s)
+
+
+def distributing_client(client, runtime):
+    """Wrap a ZeebeTpuClient so deploy_resource also awaits distribution to
+    every partition (see await_deployment_distributed)."""
+    original = client.deploy_resource
+
+    def deploy_and_await(*resources, **kw):
+        result = original(*resources, **kw)
+        ids = [p["bpmnProcessId"] for p in result.get("processes", [])]
+        if ids:
+            await_deployment_distributed(runtime, ids)
+        return result
+
+    client.deploy_resource = deploy_and_await
+    return client

@@ -4,11 +4,13 @@
 
 The port keeps its own copies of the reference's JAX-free host modules
 instead of importing them. A copy is the reference's text with the package
-name in its imports renamed (``zeebe_tpu.`` and ``from zeebe_tpu import``)
-and the reference's history tags (an issue or pull request number) left out
-of comments and docstrings. This script reads the reference files as text (it imports
-nothing of the reference) and writes each copy under ``zeebe_tpu_torch/``;
-``--check`` only lists the copies that differ and exits 1 if any does.
+name renamed (``zeebe_tpu.`` and ``from zeebe_tpu import`` in its imports,
+and the bare name quoted as a string or a literal: the logger hierarchy's
+root) and the reference's history tags (an issue or pull request number)
+left out of comments and docstrings. This script reads the reference files
+as text (it imports nothing of the reference) and writes each copy under
+``zeebe_tpu_torch/``; ``--check`` only lists the copies that differ and
+exits 1 if any does.
 ``tests/test_torch_engine_copies.py`` holds every copy to the same rule.
 Run it as a file, not with ``-m``: it then imports nothing of the port
 either, so it can repair a copy that no longer imports.
@@ -22,6 +24,18 @@ partitioning, the engine, the stream processor. The harness
 ``CLUSTER_STACK`` is the replicated broker cluster: the engine's
 migration and query services, the control plane, Raft, membership and
 topology, the broker's services, and the gateway's job streams.
+
+``GATEWAY_STACK`` is the gRPC front over the cluster runtime: the gateway's
+protocol (``gateway.proto`` and its generated ``gateway_pb2.py``, which the
+rule leaves byte for byte as they are), tenant authorization, the OAuth
+validator, admission control, the gateway service and server, and the
+client with its credentials and job worker.
+
+``REFERENCE_TESTS`` are test files of the reference run on the port: each is
+written to ``tests/test_torch_ref_<name>`` as the same rule copies it, less
+the definitions ``NOT_PORTED`` names, with ``device="cpu"`` given to every
+``ClusterRuntime`` it builds (the plain version; no device is CUDA) and the
+copy's file name where the file names itself.
 
 The files of ``PARTIAL_COPIES`` are part copy, part rewrite:
 ``engine/kernel_backend.py`` (its device members), the partition, the
@@ -44,6 +58,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 REFERENCE = REPO / "zeebe_tpu"
 PORT = REPO / "zeebe_tpu_torch"
+TESTS = REPO / "tests"
 
 ENGINE_STACK = (
     "protocol/enums.py", "protocol/intent.py", "protocol/keys.py", "protocol/msgpack.py",
@@ -83,6 +98,29 @@ CLUSTER_STACK = (
     "broker/config.py", "broker/__init__.py",
     "gateway/jobstream.py",
 )
+
+GATEWAY_STACK = (
+    "gateway/proto/__init__.py", "gateway/proto/gateway.proto", "gateway/proto/gateway_pb2.py",
+    "gateway/auth.py", "gateway/oauth.py", "gateway/admission.py", "gateway/gateway.py",
+    "gateway/__init__.py",
+    "client/credentials.py", "client/client.py", "client/worker.py", "client/__init__.py",
+)
+
+REFERENCE_TESTS = (
+    "test_gateway_client.py", "test_jobstream.py", "test_oauth.py", "test_multitenancy.py",
+    "test_admission.py", "test_metrics_parity.py", "test_logging.py",
+)
+
+#: per reference test file, the definitions its copy leaves out, and why
+NOT_PORTED = {
+    "test_admission.py": {
+        "_LoopbackAdmission": "runs the multi-process runtime (multiproc/), not ported yet",
+        "TestLoopbackAdmission": "runs the multi-process runtime (multiproc/), not ported yet",
+    },
+}
+
+TEST_HEADER = ("# tests/{name} run on the port, written by\n"
+               "# ``python zeebe_tpu_torch/testing/copies.py``: do not edit.\n")
 
 KERNEL_BACKEND = "engine/kernel_backend.py"
 
@@ -138,9 +176,43 @@ def as_copied(text: str) -> str:
     """The reference's text as the port copies it."""
     text = text.replace("zeebe_tpu.", "zeebe_tpu_torch.")
     text = text.replace("from zeebe_tpu import ", "from zeebe_tpu_torch import ")
+    text = text.replace('"zeebe_tpu"', '"zeebe_tpu_torch"')
+    text = text.replace("``zeebe_tpu``", "``zeebe_tpu_torch``")
     text = _SPLIT_TAG.sub("", text)
     text = _SPLIT_TAG_CLOSING.sub(")", text)
     return _TAG.sub("", text)
+
+
+def reference_test_copy(name: str) -> Path:
+    """Where the copy of the reference's ``tests/<name>`` lives."""
+    return TESTS / name.replace("test_", "test_torch_ref_", 1)
+
+
+def as_test_copy(text: str, name: str) -> str:
+    """A reference test file as the port runs it: ``as_copied``, less the
+    definitions ``NOT_PORTED`` names, each ``ClusterRuntime(...)`` given
+    ``device="cpu"``, the file's own name (as a string) the copy's, under a
+    header naming its source."""
+    text = as_copied(text).replace(f'"{name}"', f'"{reference_test_copy(name).name}"')
+    lines = text.splitlines(keepends=True)
+    drop = NOT_PORTED.get(name, {})
+    for node in reversed(ast.parse(text).body):
+        if definition_name(node) in drop:
+            first, last = source_lines(text, node)
+            while last < len(lines) and not lines[last].strip():
+                last += 1  # the blank lines after it go too
+            del lines[first - 1:last]
+    text = "".join(lines)
+    lines = text.splitlines(keepends=True)
+    calls = [n for n in ast.walk(ast.parse(text)) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name) and n.func.id == "ClusterRuntime"]
+    # before each call's closing parenthesis, the last first so that the
+    # earlier ones keep their offsets
+    for call in sorted(calls, key=lambda c: (c.end_lineno, c.end_col_offset), reverse=True):
+        row, col = call.end_lineno - 1, call.end_col_offset - 1
+        sep = ", " if call.args or call.keywords else ""
+        lines[row] = lines[row][:col] + f'{sep}device="cpu"' + lines[row][col:]
+    return TEST_HEADER.format(name=name) + "".join(lines)
 
 
 def definition_name(node: ast.AST) -> str | None:
@@ -203,12 +275,14 @@ def main(argv: list[str] | None = None) -> int:
                         help="list the copies that differ; write nothing")
     args = parser.parse_args(argv)
     stale = []
-    for rel in ENGINE_STACK + CLUSTER_STACK:
-        want = as_copied((REFERENCE / rel).read_text())
-        dst = PORT / rel
+    copies = [(PORT / rel, as_copied((REFERENCE / rel).read_text()))
+              for rel in ENGINE_STACK + CLUSTER_STACK + GATEWAY_STACK]
+    copies += [(reference_test_copy(name), as_test_copy((TESTS / name).read_text(), name))
+               for name in REFERENCE_TESTS]
+    for dst, want in copies:
         if dst.exists() and dst.read_text() == want:
             continue
-        stale.append(rel)
+        stale.append(dst.relative_to(REPO).as_posix())
         if not args.check:
             dst.parent.mkdir(parents=True, exist_ok=True)
             dst.write_text(want)
@@ -217,7 +291,7 @@ def main(argv: list[str] | None = None) -> int:
         text = dst.read_text()
         want = splice_runs(text, (REFERENCE / rel).read_text(), runs)
         if want != text:
-            stale.append(rel)
+            stale.append(dst.relative_to(REPO).as_posix())
             if not args.check:
                 dst.write_text(want)
     for rel in stale:

@@ -96,7 +96,7 @@ def configure_logging(appender: str | None = None, level: str | None = None,
                       service_name: str | None = None,
                       service_version: str | None = None,
                       stream=None) -> logging.Handler:
-    """Install the selected appender on the ``zeebe_tpu`` logger hierarchy
+    """Install the selected appender on the ``zeebe_tpu_torch`` logger hierarchy
     (reference: log4j2.xml root appender ref ``${env:ZEEBE_LOG_APPENDER:-
     Console}``). Returns the installed handler."""
     appender = (appender or os.environ.get("ZEEBE_LOG_APPENDER", "console")).lower()
@@ -112,7 +112,7 @@ def configure_logging(appender: str | None = None, level: str | None = None,
         formatter = logging.Formatter(_CONSOLE_PATTERN, datefmt="%Y-%m-%d %H:%M:%S")
     handler = logging.StreamHandler(stream)
     handler.setFormatter(formatter)
-    root = logging.getLogger("zeebe_tpu")
+    root = logging.getLogger("zeebe_tpu_torch")
     for old in list(root.handlers):
         root.removeHandler(old)
     root.addHandler(handler)
