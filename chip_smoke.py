@@ -78,8 +78,8 @@ exit) if any phase fails:
     cluster; Zeebe's published benchmark layout) on a controlled clock over
     the loopback network, each leader's ``KernelBackend(max_group=2048,
     chunk_steps=8)`` on the card; phase 10's definitions deployed on
-    partition 1 and distributed, 3,000 instances through the leaders'
-    client ingress (1,000 a partition, round robin, x = i mod 30), every
+    partition 1 and distributed, 900 instances through the leaders'
+    client ingress (300 a partition, round robin, x = i mod 30), every
     job activated and completed in waves of up to 1,000 per type. Every
     instance completes, each partition's log is byte-identical on its three
     replicas and to the same cluster run with ``kernel_backend=False`` on
@@ -95,7 +95,7 @@ exit) if any phase fails:
 13. the gateway's runtime answers requests: ``ClusterRuntime`` of the same
     shape with one mesh runner of 3 shards on the card and a 2 ms batch
     window (B7 through the broker, the partitions' groups coalescing), its
-    partition threads started; through ``submit``: the deployment, 600
+    partition threads started; through ``submit``: the deployment, 300
     creations (27 one at a time, one a partition and process, so that the
     partitions' kernel registries hold equal table sets; the rest from 8
     client threads; each awaited), then activations and completions until
@@ -107,7 +107,7 @@ exit) if any phase fails:
 14. the gRPC front: the port's ``Gateway`` over a ``ClusterRuntime`` of
     phase 13's shape built with no device argument (the card), the port's
     ``ZeebeTpuClient`` against it: phase 10's nine definitions and one DMN
-    through ``DeployResource``, 600 ``CreateProcessInstance`` calls (27 one
+    through ``DeployResource``, 300 ``CreateProcessInstance`` calls (27 one
     at a time, each process once on each partition, the rest from 8 client
     threads), one instance created and cancelled, one ``JobWorker`` per job
     type over ``StreamActivatedJobs`` until every instance completes, then
@@ -119,7 +119,29 @@ exit) if any phase fails:
     13's ``submit`` latency, the gateway's ``gateway_request_latency`` per
     RPC, the mesh runner's dispatches and coalesced share, the router's
     counts and the card's busy share;
-15. prints the kernels line (JSON), then the card line, then the result line.
+15. the standalone entry point: ``python -m zeebe_tpu_torch.standalone``
+    as a subprocess with no device argument (the card), in its three
+    shapes of 3 partitions x replication 3, each with a data directory, a
+    management port and the completion exporter
+    (``testing/standalone_run.py``), driven by the port's client with phase
+    14's definitions (the creations one at a time first, then 8 client
+    threads, one ``JobWorker`` a job type): supervised workers
+    (``--workers 3``, 600 creations, the first worker that leads a
+    partition killed with SIGKILL after the 300th; the supervisor restarts it and it
+    recovers), three broker processes over TCP (300 through broker-0's
+    gateway) and in-process brokers (150). Fails on a non-OK status (but a
+    typed retryable one after the kill, retried and counted), an instance
+    not completed, a partition leader without kernel records on
+    ``/cluster/status``, a host record routed to the host or contained by
+    the fault seam, a device ladder not HEALTHY, replicas whose stream
+    logs (read offline after the stop) disagree or miss a completion the
+    client saw, an exit code other than 0 after SIGTERM, or a process left
+    alive. Prints each shape's seconds to serving and boot timeline, each
+    process's start-up split (probe, CUDA context, kernel library, link),
+    create latency p50/p99 beside phase 14's, each leader's kernel and
+    host records and the supervisor's restarts. The workers' launches are
+    counted in their own processes: the kernels line does not add them;
+16. prints the kernels line (JSON), then the card line, then the result line.
 
 Three paths run the automaton's steps (``ops/kernels.py``): the fused
 chunk, one thread-block cluster per shard and ONE launch per chunk, for
@@ -166,13 +188,19 @@ the serial layout's time.
 from __future__ import annotations
 
 import argparse
+import ast
 import dataclasses
 import json
+import os
+import re
+import signal
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2408,6 +2436,447 @@ def phase_grpc(card: str, runtime_phase: dict, n_requests: int = 600, clients: i
             "mesh": stats, "busy": busy, "wall": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the standalone entry point in its three shapes
+
+#: the typed statuses a client may meet while a killed worker's partitions
+#: elect new leaders; retried and counted in the workers shape's failover
+#: window (from the kill through its last creation), fatal anywhere else
+RETRYABLE = ("UNAVAILABLE", "RESOURCE_EXHAUSTED")
+#: host records a leader must not have: a group the router sent to the host
+#: (``routed-host``, counted under ``unregistered`` on the metrics plane) or
+#: one the device-fault seam contained
+FORBIDDEN_HOST = re.compile(r'zeebe_kernel_records_total\{[^}]*path="host"[^}]*'
+                            r'reason="(device-[^"]*|unregistered)"[^}]*\} (\S+)')
+SHAPE_ARGS = ["--partitions", "3", "--replication", "3"]
+#: what the kernel backend logs when the fault seam contains a device
+#: failure or the shadow oracle quarantines a device result
+DEVICE_FAULT_LINES = ("device failure contained", "shadow verification MISMATCH")
+
+
+def partition_of(key: int) -> int:
+    """The partition a Zeebe key was minted on (its top bits)."""
+    return key >> 51
+
+
+def standalone_boot_lines(text: str) -> list[dict]:
+    """Each start-up a log holds: the probe's seconds, the card's start-up
+    split (CUDA context, kernel library, link) and, for a worker, the
+    seconds from its main to serving."""
+    out = []
+    for line in text.splitlines():
+        if "device probe:" in line and "'elapsed_s'" in line:
+            found = re.search(r"'elapsed_s': ([0-9.]+)", line)
+            out.append({"probe_s": float(found.group(1))})
+        elif " card up: " in line and out:
+            out[-1].update(ast.literal_eval(line.split(" card up: ", 1)[1]))
+        elif " worker up: " in line and out:
+            found = re.search(r"([0-9.]+) s after main", line)
+            out[-1]["main_s"] = float(found.group(1))
+    return out
+
+
+class ShapeRun:
+    """One shape's processes and what its client saw."""
+
+    def __init__(self, name: str, root) -> None:
+        self.name = name
+        self.root = root
+        self.procs: list = []
+        self.management: list[int] = []
+        self.keys: list[int] = []
+        self.latency: dict[str, list[float]] = {"warm": [], "create": []}
+        self.retried: dict[str, int] = {}
+        self.failover = False
+        self.lock = threading.Lock()
+
+    def create(self, client, kind: str, process: str, x: int) -> int:
+        """One creation; in the failover window a typed retryable status is
+        retried (and counted), anything else fails the phase."""
+        import grpc
+
+        t0 = time.perf_counter()
+        while True:
+            try:
+                key = client.create_instance(process, variables={"x": x}).process_instance_key
+                break
+            except grpc.RpcError as exc:
+                code = exc.code().name
+                if not (self.failover and code in RETRYABLE):
+                    raise AssertionError(f"phase15 {self.name}: CreateProcessInstance "
+                                         f"answered {code}: {exc.details()}") from exc
+                with self.lock:
+                    self.retried[code] = self.retried.get(code, 0) + 1
+                time.sleep(0.05)
+        with self.lock:
+            self.latency[kind].append(time.perf_counter() - t0)
+            self.keys.append(key)
+        return key
+
+    def status(self) -> dict:
+        """The cluster's partition rows: /cluster/status of every management
+        port (one for the in-process and workers shapes, one a broker over
+        TCP), leaders by partition."""
+        from zeebe_tpu_torch.testing.standalone_run import StandaloneProcess
+
+        rows, workers = [], {}
+        for port in self.management:
+            status = StandaloneProcess.get(port, "/cluster/status")
+            rows += status["brokers"]
+            workers.update(status.get("workers", {}))
+        leaders = {int(pid): (row["nodeId"], part) for row in rows
+                   for pid, part in row.get("partitions", {}).items()
+                   if part.get("role") == "leader" and not row.get("stale")}
+        return {"leaders": leaders, "workers": workers, "rows": rows}
+
+
+#: the lines a process writes on its way to serving, in order: its guard's
+#: verdict, the card up, a worker serving its port, the gateway bound (in
+#: process and for the workers, over TCP)
+BOOT_MARKS = ("device probe", "card up", "worker up", "gateway listening", "gateway on")
+
+
+def await_serving(run: ShapeRun, gateway: int, deadline: float) -> tuple:
+    """A client of the gateway on port ``gateway``, made once the first
+    process's log says the gateway is bound (a channel opened before would
+    back off from its failed connects); the seconds from the first
+    process's start until its topology shows three brokers and a leader for
+    every partition; the boot's timeline: the seconds at which each
+    process's log first showed each of ``BOOT_MARKS`` (read every 0.2 s)."""
+    from zeebe_tpu_torch.client import ZeebeTpuClient
+
+    timeline: dict[str, float] = {}
+    client = None
+    while True:
+        now = time.monotonic() - run.procs[0].started
+        logs = {proc.log_path.stem: proc.log() for proc in run.procs}
+        logs.update({p.parent.name: p.read_text(errors="replace")
+                     for p in run.root.glob("*/worker.log")})
+        for source, text in logs.items():
+            for mark in BOOT_MARKS:
+                if mark in text:
+                    timeline.setdefault(f"{source}: {mark}", round(now, 1))
+        for proc in run.procs:
+            if proc.exited() is not None:
+                raise AssertionError(f"phase15 {run.name}: a process exited "
+                                     f"{proc.exited()} while booting:\n{proc.log()[-3000:]}")
+        if client is None and any(f"{run.procs[0].log_path.stem}: {mark}" in timeline
+                                  for mark in BOOT_MARKS[3:]):
+            client = ZeebeTpuClient(f"127.0.0.1:{gateway}", credentials_provider=False)
+        if client is not None:
+            topology = client.topology()
+            leaders = {pid for b in topology.brokers for pid, role in b["partitions"].items()
+                       if role == "LEADER"}
+            if len(topology.brokers) == 3 and leaders == {1, 2, 3}:
+                return client, time.monotonic() - run.procs[0].started, timeline
+        if time.monotonic() > deadline:
+            if client is not None:
+                client.close()
+            raise AssertionError(f"phase15 {run.name}: not serving in time:\n"
+                                 f"{run.procs[0].log()[-3000:]}")
+        time.sleep(0.2)
+
+
+def await_failover(run: ShapeRun, killed: dict) -> None:
+    """Sets ``killed["failover_s"]``: the seconds from the kill until the
+    gateway's /cluster/status shows another worker leading every partition
+    the killed one led (read every 0.1 s, for at most 60 s)."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < 60.0:
+        rows = run.status()["rows"]
+        moved = {int(pid) for row in rows if row["nodeId"] != killed["worker"]
+                 and not row.get("stale")
+                 for pid, part in row.get("partitions", {}).items()
+                 if part.get("role") == "leader"}
+        if set(killed["partitions"]) <= moved:
+            killed["failover_s"] = round(time.monotonic() - t0, 3)
+            return
+        time.sleep(0.1)
+
+
+def drive_shape(run: ShapeRun, client, models, n_requests: int, clients: int,
+                kill_after: int | None = None) -> dict:
+    """Phase 14's traffic against one shape: the nine definitions and the
+    DMN deployed; a creation of the first process until every partition has
+    answered one (the deployment's distribution; NOT_FOUND until then);
+    creations of each process once on each partition one at a time; the
+    rest from ``clients`` threads; with ``kill_after``, SIGKILL of the first
+    worker that leads a partition once that many creations are acknowledged; then one
+    ``JobWorker`` a job type until the completion exporter has every
+    acknowledged instance."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import grpc
+
+    from zeebe_tpu_torch.client import JobWorker
+    from zeebe_tpu_torch.testing.standalone_run import completed_keys
+
+    pids = [m.process_id for m in models]
+    t0 = time.monotonic()
+    client.deploy_resource(*[(f"{m.process_id}.bpmn", to_bpmn_xml(m)) for m in models],
+                           ("band.dmn", W.dmn_band_xml()))
+    answered: set = set()
+    deadline = time.monotonic() + 60.0
+    while answered != {1, 2, 3}:
+        try:
+            answered.add(partition_of(run.create(client, "warm", pids[0], 0)))
+        except AssertionError as exc:
+            cause = exc.__cause__
+            if not (isinstance(cause, grpc.RpcError) and cause.code() == grpc.StatusCode.NOT_FOUND
+                    and time.monotonic() < deadline):
+                raise
+            time.sleep(0.05)
+    for i, process in enumerate(process for process in pids for _ in range(3)):
+        run.create(client, "warm", process, i % 30)
+    killed = None
+    with ThreadPoolExecutor(clients) as pool:
+        first = n_requests if kill_after is None else kill_after
+        todo = list(range(len(run.keys), first))
+        for f in [pool.submit(run.create, client, "create", pids[i % len(pids)], i % 30)
+                  for i in todo]:
+            f.result()
+        if kill_after is not None:
+            status = run.status()
+            # the first worker in the gateway's member order that leads a
+            # partition: every partition it led fails over to a worker
+            # listed after it, whose leadership must displace the dead
+            # worker's last status row
+            name = min(node for node, _ in status["leaders"].values())
+            led = sorted(pid for pid, (node, _) in status["leaders"].items() if node == name)
+            pid = status["workers"][name]["pid"]
+            os.kill(pid, signal.SIGKILL)
+            killed = {"worker": name, "pid": pid, "partitions": led}
+            run.failover = True
+            watch = threading.Thread(target=await_failover, args=(run, killed), daemon=True)
+            watch.start()
+            for f in [pool.submit(run.create, client, "create", pids[i % len(pids)], i % 30)
+                      for i in range(len(run.keys), n_requests)]:
+                f.result()
+            watch.join(timeout=60.0)
+    created_s = time.monotonic() - t0
+    seen_jobs: set = set()
+
+    def handle(job) -> dict:
+        with run.lock:
+            seen_jobs.add(job.key)
+        return {}
+
+    workers = [JobWorker(client, t, handle, worker_name="smoke", stream_enabled=True,
+                         timeout_ms=30_000).start() for t in job_types(models)]
+    try:
+        deadline = time.monotonic() + 300.0
+        while not set(run.keys) <= completed_keys(run.root / "completed"):
+            if time.monotonic() > deadline:
+                missing = len(set(run.keys) - completed_keys(run.root / "completed"))
+                raise AssertionError(f"phase15 {run.name}: {missing} of {len(run.keys)} "
+                                     f"instances did not complete")
+            time.sleep(0.2)
+    finally:
+        for w in workers:
+            w.stop()
+    return {"killed": killed, "created_s": created_s, "seen_jobs": seen_jobs,
+            "handled": sum(w.handled_count for w in workers),
+            "failed": sum(w.failed_count for w in workers)}
+
+
+def check_leaders(run: ShapeRun) -> dict:
+    """Every partition's leader: kernel records, a healthy device ladder, no
+    shadow mismatch and no forbidden host reason (over TCP and in process
+    every host record is on the metrics plane; a worker's status row names
+    its dominant reason); per partition (kernel records, host records,
+    dominant host reason, leader)."""
+    deadline = time.monotonic() + 30.0
+    while True:  # a worker's status push lags its last group by up to 1 s
+        status = run.status()
+        leaders = status["leaders"]
+        done = sorted(leaders) == [1, 2, 3] and all(
+            part.get("kernelCoverage", {}).get("kernelRecords", 0) > 0
+            for _, part in leaders.values())
+        if done or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    out = {}
+    for pid in (1, 2, 3):
+        if pid not in leaders:
+            raise AssertionError(f"phase15 {run.name}: partition {pid} has no leader: "
+                                 f"{status['rows']}")
+        node, part = leaders[pid]
+        cov = part.get("kernelCoverage", {})
+        if cov.get("kernelRecords", 0) <= 0:
+            raise AssertionError(f"phase15 {run.name}: partition {pid}'s leader {node} has "
+                                 f"no kernel records: {cov}")
+        reason = cov.get("dominantHostReason", "")
+        if reason == "routed-host" or reason.startswith("device-"):
+            raise AssertionError(f"phase15 {run.name}: partition {pid} host records {reason}")
+        device = cov.get("device", {})
+        if device.get("state") != "HEALTHY" or device.get("shadowMismatches", 0):
+            raise AssertionError(f"phase15 {run.name}: partition {pid}'s ladder {device}")
+        out[pid] = (cov["kernelRecords"], cov.get("hostRecords", 0), reason or None, node)
+    if run.name != "workers":  # each process's own metrics plane
+        for port in run.management:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+                text = r.read().decode()
+            bad = [(r, v) for r, v in FORBIDDEN_HOST.findall(text) if float(v) > 0]
+            if bad:
+                raise AssertionError(f"phase15 {run.name}: forbidden host records {bad}")
+    return out
+
+
+def check_replicas(run: ShapeRun, seen_jobs: set) -> dict:
+    """Offline, after the clean stop: per partition, three replicas that
+    agree wherever two hold a position, and a log holding every
+    acknowledged instance's completion and every job the workers
+    completed. Records per partition."""
+    from zeebe_tpu_torch.testing.standalone_run import (
+        is_process_completion,
+        merged_log,
+        replica_logs,
+    )
+
+    logs = replica_logs(run.root)
+    out, completed, jobs = {}, set(), set()
+    for pid in (1, 2, 3):
+        replicas = logs.get(pid, {})
+        if len(replicas) != 3:
+            raise AssertionError(f"phase15 {run.name}: partition {pid} has replicas "
+                                 f"{sorted(replicas)}")
+        try:
+            merged = merged_log(replicas)
+        except AssertionError as exc:
+            raise AssertionError(f"phase15 {run.name}: partition {pid}: {exc}") from None
+        for rec in merged.values():
+            if is_process_completion(rec):
+                completed.add(rec.key)
+            elif rec.value_type == ValueType.JOB and rec.intent == JobIntent.COMPLETED:
+                jobs.add(rec.key)
+        out[pid] = len(merged)
+    if not set(run.keys) <= completed:
+        raise AssertionError(f"phase15 {run.name}: {len(set(run.keys) - completed)} "
+                             f"acknowledged instances lack a completion in the logs")
+    if not seen_jobs <= jobs:
+        raise AssertionError(f"phase15 {run.name}: {len(seen_jobs - jobs)} jobs the workers "
+                             f"completed lack a completion in the logs")
+    return out
+
+
+def run_shape(name: str, root, n_requests: int, clients: int, device,
+              kill_after: int | None = None) -> dict:
+    """Start one shape, drive it, check it, stop it; the processes are
+    torn down (SIGTERM, then SIGKILL to every one) whatever happens."""
+    from zeebe_tpu_torch.standalone import _free_ports
+    from zeebe_tpu_torch.testing.standalone_run import StandaloneProcess, completion_env
+
+    run = ShapeRun(name, root / name)
+    env = dict(os.environ, **completion_env(run.root / "completed"))
+    extra = [] if device is None else ["--device", device]
+    if name == "tcp":
+        ports = _free_ports(9)
+        contact = ",".join(f"broker-{i}=127.0.0.1:{ports[i]}" for i in range(3))
+        for i in range(3):
+            run.management.append(ports[6 + i])
+            run.procs.append(StandaloneProcess(
+                ["--node-id", f"broker-{i}", "--bind", f"127.0.0.1:{ports[i]}",
+                 "--contact", contact, "--port", str(ports[3 + i]),
+                 "--management-port", str(ports[6 + i]), *SHAPE_ARGS, *extra],
+                run.root / f"broker-{i}", env=env))
+        gateway = ports[3]
+    else:
+        gateway, management = _free_ports(2)
+        run.management.append(management)
+        shape = ["--workers", "3"] if name == "workers" else ["--brokers", "3"]
+        run.procs.append(StandaloneProcess(
+            [*shape, "--port", str(gateway), "--management-port", str(management),
+             *SHAPE_ARGS, *extra], run.root, env=env))
+    client = None
+    rcs, survivors = [], []
+    try:
+        for proc in run.procs:
+            proc.start()
+        client, boot_s, timeline = await_serving(run, gateway, time.monotonic() + 300.0)
+        drove = drive_shape(run, client, serving_models(), n_requests, clients, kill_after)
+        leaders = check_leaders(run)
+        restarts = {w: s.get("restarts", 0) for w, s in run.status()["workers"].items()}
+        client.close()
+        client = None
+        rcs = [proc.stop() for proc in run.procs]
+    finally:
+        if client is not None:
+            client.close()
+        for proc in run.procs:
+            survivors += proc.kill()
+    if rcs != [0] * len(run.procs):
+        raise AssertionError(f"phase15 {name}: exit codes after SIGTERM {rcs}")
+    if survivors:
+        raise AssertionError(f"phase15 {name}: processes survived the stop: {survivors}")
+    records = check_replicas(run, drove["seen_jobs"])
+    logs = [p.read_text() for p in sorted(run.root.glob("*/worker.log"))]
+    logs += [proc.log() for proc in run.procs]
+    faults = [line for text in logs for line in text.splitlines()
+              if any(mark in line for mark in DEVICE_FAULT_LINES)]
+    if faults:
+        raise AssertionError(f"phase15 {name}: device faults in the logs: {faults[:5]}")
+    if name != "workers" and drove["failed"]:
+        raise AssertionError(f"phase15 {name}: the workers failed {drove['failed']} jobs")
+    boots = [b for text in logs for b in standalone_boot_lines(text)]
+    lat = {k: (1e3 * percentile(v, 0.5), 1e3 * percentile(v, 0.99)) for k, v in
+           run.latency.items() if v}
+    return {"boot_s": boot_s, "timeline": timeline, "latency": lat, "leaders": leaders, "records": records,
+            "restarts": restarts, "retried": run.retried, "boots": boots,
+            "created": len(run.keys), "one_at_a_time": len(run.latency["warm"]), **drove}
+
+
+def phase_standalone(card: str, grpc_phase: dict, device=None, requests=(600, 300, 150),
+                     clients: int = 8) -> dict:
+    """Phase 15: ``python -m zeebe_tpu_torch.standalone`` in its three
+    shapes, each a subprocess with no device argument (the card; ``device``
+    only in a rehearsal on the CPU), a data directory and a management
+    port, driven by the port's ``ZeebeTpuClient`` with phase 14's
+    definitions: supervised workers (``--workers 3``, ``requests[0]``
+    creations, the first worker that leads a partition killed with SIGKILL after
+    half of them), the TCP cluster (three processes, ``requests[1]``
+    through broker-0's gateway) and in-process brokers (``requests[2]``),
+    each 3 partitions x replication 3. Fails on a non-OK status (but a typed
+    retryable one in the workers shape's failover window), an instance not
+    completed, a leader without kernel records, a forbidden host record, a
+    device ladder not HEALTHY, replicas that disagree or miss a completion
+    the client saw, an exit code other than 0 after SIGTERM or a surviving
+    process."""
+    root = Path(tempfile.mkdtemp(prefix="zeebe-standalone-"))
+    out = {}
+    for name, n, kill_after in (("workers", requests[0], requests[0] // 2),
+                                ("tcp", requests[1], None), ("in-process", requests[2], None)):
+        t0 = time.perf_counter()
+        res = out[name] = run_shape(name, root, n, clients, device, kill_after)
+        killed = res["killed"]
+        failover = ""
+        if killed is not None:
+            failover = (f"; killed {killed['worker']} (pid {killed['pid']}, leading partitions "
+                        f"{killed['partitions']}) after {n // 2} creations, new leaders "
+                        f"{killed.get('failover_s', 'not seen within 60')} s after the kill, "
+                        f"restarts {res['restarts']}, retried "
+                        f"{res['retried'] or 'nothing'}, job completions failed and retried "
+                        f"{res['failed']}")
+        lat = res["latency"]
+        log(f"phase15 standalone {name} [{card}]: 3 x 3 partitions x replication 3 on "
+            f"{'the card (no device argument)' if device is None else device}; serving "
+            f"{res['boot_s']:.3f} s after the start; {res['created']} CreateProcessInstance "
+            f"in {res['created_s']:.3f} s after the deployment "
+            f"({res['one_at_a_time']} one at a time incl. the "
+            f"distribution probes, the rest from {clients} threads) and {res['handled']} jobs "
+            f"by 9 JobWorkers, every instance complete; create ms p50/p99 "
+            f"{round(lat['create'][0], 3)}/{round(lat['create'][1], 3)} (one at a time "
+            f"{round(lat['warm'][0], 3)}/{round(lat['warm'][1], 3)}) beside phase 14's "
+            f"{round(grpc_phase['latency']['create'][0], 3)}/"
+            f"{round(grpc_phase['latency']['create'][1], 3)}; leaders' (kernel, host records, "
+            f"dominant host reason, node) {res['leaders']}; records per partition "
+            f"{res['records']}, replicas agree{failover}; exit 0 after SIGTERM, no process "
+            f"left; {time.perf_counter() - t0:.1f} s")
+        log(f"phase15 boot {name} [{card}]: per process start-up (probe s, CUDA context s, "
+            f"kernel library s, link s, worker main to serving s) {res['boots']}; timeline "
+            f"(s after the start, by log line) {res['timeline']}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2458,9 +2927,10 @@ def main() -> int:
     phase_telemetry(slice_info, dev, card)
     sequential = phase_engine(card)
     serving = phase_serving(card, sequential)
-    cluster = phase_cluster(card)
-    runtime = phase_runtime(card)
-    front = phase_grpc(card, runtime)
+    cluster = phase_cluster(card, 900)
+    runtime = phase_runtime(card, n_requests=300)
+    front = phase_grpc(card, runtime, n_requests=300)
+    phase_standalone(card, front)
     timing["decision"] = {**decision["bench"]}
     worst["decision"] = decision["err"]
     log(f"sharded timings [{card}] at {N_SHARDS} shards of the serving geometry: "

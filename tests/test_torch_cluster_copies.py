@@ -65,13 +65,18 @@ def test_cluster_module_is_a_copy(path):
     assert (PORT / path).read_text() == as_copied((REF / path).read_text())
 
 
-@pytest.mark.parametrize("path", PARTIAL)
-def test_copied_runs_are_the_scripts(path):
+def check_copied_runs(path: str) -> None:
+    """A partial copy's marked runs are what the copy script writes."""
     text = (PORT / path).read_text()
     runs = copies.PARTIAL_COPIES[path]
     assert copies.splice_runs(text, (REF / path).read_text(), runs) == text
     for scope, first, last in runs:
         assert copies.BEGIN.format(first, last) in text
+
+
+@pytest.mark.parametrize("path", PARTIAL)
+def test_copied_runs_are_the_scripts(path):
+    check_copied_runs(path)
 
 
 def _copied(text: str, runs) -> set:
@@ -111,12 +116,14 @@ def _classes(path: str) -> set:
     return {s for s, _, _ in copies.PARTIAL_COPIES[path] if s}
 
 
-@pytest.mark.parametrize("path", PARTIAL)
-def test_every_member_is_copied_or_named(path):
+def check_members_copied_or_named(path: str, port_members: dict) -> None:
+    """Every reference member of a partial copy is in a copied run or named
+    in ``port_members``; the port has the same members and class
+    docstrings."""
     ref, port = _texts(path)
     classes = _classes(path)
     copied = _copied(ref, copies.PARTIAL_COPIES[path])
-    named = set(PORT_MEMBERS[path])
+    named = set(port_members)
     ref_members, port_members = _members(ref, classes), _members(port, classes)
     # a class holding copied runs is compared member by member
     outside = {k for k in ref_members if not (k[0] is None and k[1] in classes)}
@@ -124,6 +131,11 @@ def test_every_member_is_copied_or_named(path):
     assert set(port_members) == set(ref_members)
     for key in [k for k in ref_members if k[1] == "<doc>"]:
         assert ast.dump(port_members[key]) == ast.dump(ref_members[key])
+
+
+@pytest.mark.parametrize("path", PARTIAL)
+def test_every_member_is_copied_or_named(path):
+    check_members_copied_or_named(path, PORT_MEMBERS[path])
 
 
 class _Without(ast.NodeTransformer):
@@ -171,9 +183,14 @@ EXTENDED = [(path, scope, name) for path in PARTIAL
 @pytest.mark.parametrize("path,scope,name", EXTENDED,
                          ids=[f"{p}:{s or 'module'}.{n}" for p, s, n in EXTENDED])
 def test_member_is_the_references_plus_the_device(path, scope, name):
+    check_member_plus_names(path, scope, name, PORT_MEMBERS[path][(scope, name)])
+
+
+def check_member_plus_names(path: str, scope, name: str, names: set) -> None:
+    """A partial copy's member is the reference's without ``names``, and
+    differs from it."""
     ref, port = _texts(path)
     classes = _classes(path)
-    names = PORT_MEMBERS[path][(scope, name)]
     ref_node = _members(ref, classes)[(scope, name)]
     port_node = _members(port, classes)[(scope, name)]
     assert _without(port_node, names) == _without(ref_node, names)
@@ -181,15 +198,20 @@ def test_member_is_the_references_plus_the_device(path, scope, name):
     assert ast.dump(port_node) != ast.dump(ref_node)
 
 
-@pytest.mark.parametrize("path", PARTIAL)
-def test_imports_are_the_references_plus_the_named(path):
+def check_imports(path: str, added: set) -> None:
+    """A partial copy's module imports are the reference's and ``added``."""
     ref, port = _texts(path)
 
     def imports(text):
         return {ast.unparse(n) for n in ast.parse(text).body
                 if isinstance(n, (ast.Import, ast.ImportFrom))}
 
-    assert imports(port) == imports(ref) | ADDED_IMPORTS[path]
+    assert imports(port) == imports(ref) | added
+
+
+@pytest.mark.parametrize("path", PARTIAL)
+def test_imports_are_the_references_plus_the_named(path):
+    check_imports(path, ADDED_IMPORTS[path])
 
 
 _IMPORT_SCRIPT = """

@@ -2,8 +2,9 @@
 
 The reference's own tests run on the port, their imports renamed (every
 broker they build on the CPU; ``tests/torch_cluster_flows.py``): all of
-``tests/test_control.py`` but the tests of the multi-process worker's
-ingress coalescing and of the CLI, which are not ported yet; all of
+``tests/test_control.py`` but the test of the CLI, which is not ported
+yet (the multi-process worker's ingress coalescing runs since the worker
+is ported); all of
 ``tests/test_device_link.py``; and the four router-bound flows of
 ``tests/test_device_faults.py``. Then the port's own: a group the router
 sends to the host runs the plain version on a CPU backend and writes the
@@ -31,9 +32,8 @@ from zeebe_tpu_torch.utils import backend_probe as probe
 from zeebe_tpu_torch.utils import device_link
 from zeebe_tpu_torch.utils.device_link import BackendRouter
 
-#: the multi-process worker's ingress coalescing and the CLI's top view
-#: (``zeebe_tpu.multiproc``, ``zeebe_tpu.cli``) come with a later slice
-NOT_PORTED = ("TestIngressCoalescing", "test_top_renders_control_section")
+#: the CLI's top view (``zeebe_tpu.cli``) comes with a later slice
+NOT_PORTED = ("test_top_renders_control_section",)
 ROUTER_FLOWS = ("test_canary_pins_accelerator_past_quarantine_host_bias",
                 "test_accel_device_none_when_routing_disabled",
                 "test_routing_controller_biases_on_device_state",

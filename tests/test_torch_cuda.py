@@ -1153,3 +1153,75 @@ def test_grpc_front_on_the_card_answers_like_the_cpu(cuda, clean_plane):
         client.close()
         gateway.stop()
         runtime.stop()
+
+
+def test_standalone_workers_shape_serves_on_the_card(cuda, tmp_path):
+    """``python -m zeebe_tpu_torch.standalone --workers 3 --partitions 3
+    --replication 3`` with no device argument: three worker processes, each
+    with its own CUDA context on the card, serve 20 instances through a
+    ``JobWorker``; every partition's leader counts kernel records on
+    ``/cluster/status``; SIGTERM stops every process with exit code 0."""
+    import os
+    import time
+
+    import grpc
+
+    from zeebe_tpu_torch.client import JobWorker, ZeebeTpuClient
+    from zeebe_tpu_torch.models.bpmn import to_bpmn_xml
+    from zeebe_tpu_torch.standalone import _free_ports
+    from zeebe_tpu_torch.testing import standalone_run as S
+
+    kernels.load()  # built once here, not by three workers at once
+    grpc_port, management = _free_ports(2)
+    proc = S.StandaloneProcess(
+        ["--workers", "3", "--partitions", "3", "--replication", "3",
+         "--port", str(grpc_port), "--management-port", str(management)],
+        tmp_path / "standalone", env=dict(os.environ, **S.completion_env(tmp_path / "done")))
+    client = worker = None
+    keys: list[int] = []
+    try:
+        proc.start()
+        client = ZeebeTpuClient(f"127.0.0.1:{grpc_port}", credentials_provider=False)
+        deadline = time.monotonic() + 240.0
+        while True:
+            assert proc.exited() is None, proc.log()[-3000:]
+            try:
+                if len(client.topology().brokers) == 3:
+                    break
+            except grpc.RpcError:
+                pass
+            assert time.monotonic() < deadline, proc.log()[-3000:]
+            time.sleep(0.2)
+        client.deploy_resource(("one_task.bpmn", to_bpmn_xml(W.one_task())))
+        worker = JobWorker(client, "work_one_task", lambda job: {}, stream_enabled=True).start()
+        while len(keys) < 20:
+            try:
+                keys.append(client.create_instance("one_task").process_instance_key)
+            except grpc.RpcError as exc:  # the deployment reaching partitions 2 and 3
+                assert exc.code() == grpc.StatusCode.NOT_FOUND and time.monotonic() < deadline
+                time.sleep(0.05)
+        while not set(keys) <= S.completed_keys(tmp_path / "done"):
+            assert time.monotonic() < deadline, "the instances did not complete"
+            time.sleep(0.1)
+        while True:  # the workers push their rows once a second
+            rows = S.StandaloneProcess.get(management, "/cluster/status")["brokers"]
+            leaders = {int(pid): part.get("kernelCoverage", {}).get("kernelRecords", 0)
+                       for row in rows for pid, part in row["partitions"].items()
+                       if part["role"] == "leader"}
+            if sorted(leaders) == [1, 2, 3] and min(leaders.values()) > 0:
+                break
+            assert time.monotonic() < deadline, rows
+            time.sleep(0.5)
+        worker.stop()
+        worker = None
+        client.close()
+        client = None
+        assert proc.stop() == 0, proc.log()[-3000:]
+    finally:
+        if worker is not None:
+            worker.stop()
+        if client is not None:
+            client.close()
+        survivors = proc.kill()
+    assert survivors == []
+    assert {k >> 51 for k in keys} == {1, 2, 3}

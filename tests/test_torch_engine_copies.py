@@ -49,6 +49,12 @@ REWRITTEN = {
     "broker/partition.py": "partial copy: the kernel backend's device (test_torch_cluster_copies)",
     "broker/broker.py": "partial copy: BrokerCfg.device, the card count (test_torch_cluster_copies)",
     "gateway/broker_client.py": "partial copy: ClusterRuntime's device (test_torch_cluster_copies)",
+    "gateway/tcp_runtime.py": "partial copy: TcpClusterRuntime's device (test_torch_standalone)",
+    "testing/chaos.py": "partial copy: ChaosHarness's device (test_torch_standalone)",
+    "multiproc/supervisor.py": "partial copy: the workers' --device (test_torch_standalone)",
+    "multiproc/worker.py": "partial copy: --device and the card guard (test_torch_standalone)",
+    "multiproc/runtime.py": "partial copy: leader routing by term (test_torch_standalone)",
+    "standalone.py": "partial copy: --device and the card guard (test_torch_standalone)",
 }
 
 

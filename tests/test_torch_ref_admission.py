@@ -293,6 +293,130 @@ class TestAdmissionController:
 # loopback integration: gateway + worker over the multi-process protocol
 
 
+class _LoopbackAdmission:
+    """WorkerRuntime + MultiProcClusterRuntime over the loopback network
+    with explicit admission config on the gateway side (the worker side
+    reads the environment, set by the test before construction)."""
+
+    def __init__(self, tmp_path, gateway_admission=None):
+        from zeebe_tpu_torch.broker.broker import BrokerCfg
+        from zeebe_tpu_torch.cluster.messaging import LoopbackNetwork
+        from zeebe_tpu_torch.multiproc.runtime import MultiProcClusterRuntime
+        from zeebe_tpu_torch.multiproc.worker import WorkerRuntime
+
+        self.net = LoopbackNetwork()
+        cfg = BrokerCfg(node_id="worker-0", partition_count=1,
+                        replication_factor=1, cluster_members=["worker-0"],
+                        kernel_backend=False, device="cpu")
+        self.worker = WorkerRuntime(
+            "worker-0", self.net.join("worker-0"), ["gateway-0"], cfg,
+            directory=tmp_path / "worker-0", status_interval_ms=50)
+        self.gateway = MultiProcClusterRuntime(
+            "gateway-0", {"worker-0": ("loopback", 0)}, partition_count=1,
+            messaging=self.net.join("gateway-0"),
+            admission=gateway_admission)
+        self.gateway.start()
+        self._running = True
+        self._thread = threading.Thread(target=self._pump, daemon=True)
+        self._thread.start()
+        self.gateway.await_leaders(timeout_s=30)
+
+    def _pump(self):
+        while self._running:
+            moved = self.worker.pump()
+            moved += self.net.deliver_all()
+            if not moved:
+                time.sleep(0.001)
+
+    def close(self):
+        self._running = False
+        self._thread.join(timeout=5)
+        self.gateway.stop()
+        self.worker.close()
+
+    def deploy(self, tenant: str | None = None):
+        model = (Bpmn.create_executable_process("p")
+                 .start_event("s").end_event("e").done())
+        value = {"resources": [{"resourceName": "p.bpmn",
+                                "resource": to_bpmn_xml(model)}]}
+        if tenant is not None:
+            value["tenantId"] = tenant
+        return self.gateway.submit(1, command(
+            ValueType.DEPLOYMENT, DeploymentIntent.CREATE, value))
+
+
+class TestLoopbackAdmission:
+    def test_gateway_shed_is_typed_fast_and_metered(self, tmp_path):
+        from zeebe_tpu_torch.gateway.broker_client import ResourceExhaustedError
+
+        # burst 2: the tenant-scoped deploy spends one token, the first
+        # create the second — the next create must shed
+        ctl = AdmissionController(AdmissionCfg(quotas={"t-hot": (0.1, 2.0)}),
+                                  node_id="gateway-0")
+        cluster = _LoopbackAdmission(tmp_path, gateway_admission=ctl)
+        try:
+            cluster.deploy("t-hot")
+            assert cluster.gateway.submit(
+                1, create_cmd("t-hot")).value["processInstanceKey"] > 0
+            meta: dict = {}
+            t0 = time.perf_counter()
+            with pytest.raises(ResourceExhaustedError):
+                cluster.gateway.submit(1, create_cmd("t-hot"), meta=meta)
+            # the shed never touched the worker: it is immediate
+            assert time.perf_counter() - t0 < 1.0
+            assert meta["shed"] == "tenant-quota"
+            assert meta["tenant"] == "t-hot"
+            # /cluster/status carries the admission block
+            status = cluster.gateway.cluster_status()
+            assert status["admission"]["tenants"]["t-hot"]["shed"] == 1
+        finally:
+            cluster.close()
+
+    def test_worker_side_shed_surfaces_resource_exhausted(self, tmp_path,
+                                                          monkeypatch):
+        from zeebe_tpu_torch.gateway.broker_client import ResourceExhaustedError
+
+        # gateway admission off; the WORKER reads the environment and sheds
+        monkeypatch.setenv("ZEEBE_GATEWAY_TENANT_QUOTAS", "t-hot=0.1:2")
+        gateway_off = AdmissionController(AdmissionCfg(enabled=False),
+                                          node_id="gateway-0")
+        cluster = _LoopbackAdmission(tmp_path, gateway_admission=gateway_off)
+        try:
+            cluster.deploy("t-hot")
+            assert cluster.gateway.submit(
+                1, create_cmd("t-hot")).value["processInstanceKey"] > 0
+            meta: dict = {}
+            with pytest.raises(ResourceExhaustedError) as err:
+                cluster.gateway.submit(1, create_cmd("t-hot"), meta=meta)
+            assert "admission shed" in str(err.value)
+            assert meta["error"] == "resource-exhausted"
+            # worker status pushes carry its admission evidence
+            deadline = time.time() + 5
+            while time.time() < deadline:
+                row = cluster.gateway._worker_status.get("worker-0", {})
+                if row.get("admission", {}).get(
+                        "tenants", {}).get("t-hot", {}).get("shed"):
+                    break
+                time.sleep(0.05)
+            else:
+                pytest.fail("worker admission evidence never reached the "
+                            "gateway status table")
+        finally:
+            cluster.close()
+
+    def test_ready_degrades_while_draining(self, tmp_path):
+        ctl = AdmissionController(AdmissionCfg(), node_id="gateway-0")
+        cluster = _LoopbackAdmission(tmp_path, gateway_admission=ctl)
+        try:
+            assert cluster.gateway.ready()
+            ctl.draining = True
+            assert not cluster.gateway.ready()
+            ctl.draining = False
+            assert cluster.gateway.ready()
+        finally:
+            cluster.close()
+
+
 # ---------------------------------------------------------------------------
 # satellite: backpressure whitelist accounting + limiter fuzz
 

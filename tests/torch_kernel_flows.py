@@ -78,6 +78,46 @@ class _AssertsEvaluated(ast.NodeTransformer):
 #: variant → {file name → module}; variants: REF, PORT, "sequential"
 _MODULES: dict[str, dict[str, types.ModuleType]] = {REF: {}, PORT: {}, "sequential": {}}
 _HELPER_IMPORT = re.compile(r"^from tests\.(test_\w+) import", re.M)
+# a flow that runs its own file's scenario in a child process imports the
+# file there by name (``import test_x as t`` inside the child's code)
+_CHILD_IMPORT = re.compile(r"import (test_\w+) as (\w+)\\n")
+
+
+def marked_slow(flow: tuple) -> bool:
+    """Whether the reference marks the flow ``slow``: its module, its class
+    or its method."""
+    name, cls_name, method, _ = flow
+    tree = ast.parse((TESTS / f"{name}.py").read_text())
+
+    def slow(decorators) -> bool:
+        return any("mark.slow" in ast.unparse(d) for d in decorators)
+
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and ast.unparse(node.targets[0]) == "pytestmark":
+            if "mark.slow" in ast.unparse(node.value):
+                return True
+        if isinstance(node, ast.ClassDef) and node.name == cls_name:
+            fn = next(m for m in node.body if getattr(m, "name", None) == method)
+            return slow(node.decorator_list) or slow(fn.decorator_list)
+    return False
+
+
+def port_module(name: str) -> types.ModuleType:
+    """The port's variant of ``tests/<name>.py`` for a child process of a
+    flow: its harnesses' kernel backends and its mesh runners on the CPU,
+    as ``run_flow`` puts them in the flow's own process."""
+    module = flow_module(name, PORT)
+
+    class CpuHarness(module.EngineHarness):
+        def __init__(self, *args, **kwargs) -> None:
+            if kwargs.get("use_kernel_backend") and kwargs.get("device") is None:
+                kwargs["device"] = "cpu"
+            super().__init__(*args, **kwargs)
+
+    module.EngineHarness = CpuHarness
+    if hasattr(module, "MeshKernelRunner"):
+        module.MeshKernelRunner = _cpu_mesh_runner(module.MeshKernelRunner)
+    return module
 
 
 def flow_module(name: str, variant: str) -> types.ModuleType:
@@ -94,6 +134,11 @@ def flow_module(name: str, variant: str) -> types.ModuleType:
         text = _HELPER_IMPORT.sub(lambda m: f"from _kflows_{variant}_{m.group(1)} import", text)
         if variant != REF:
             text = _as_port(text)
+            # the child runs the port's variant of the file, not the file
+            text = _CHILD_IMPORT.sub(
+                lambda m: f"import torch_kernel_flows; "
+                          f"{m.group(2)} = torch_kernel_flows.port_module('{m.group(1)}')\\n",
+                text)
         tree = ast.parse(text)
         if variant == "sequential":
             tree = ast.fix_missing_locations(_AssertsEvaluated().visit(tree))

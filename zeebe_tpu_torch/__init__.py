@@ -8,6 +8,12 @@ deploy-time table compiler) are kept as copies here
 
 Layer map, from the client down (copies unless noted):
 
+- ``standalone``          ``python -m zeebe_tpu_torch.standalone``: in-process
+                          brokers, one broker per process over TCP
+                          (``gateway.tcp_runtime``), or a gateway with
+                          supervised worker processes (``multiproc``);
+                          partial copies: ``--device`` and the start-up
+                          guard (``utils.backend_probe.boot_card``)
 - ``client``              ``ZeebeTpuClient``, ``JobWorker``, credentials
 - ``gateway``             the gRPC front: ``Gateway``, ``GatewayService``,
                           tenant authorization, OAuth, admission; and

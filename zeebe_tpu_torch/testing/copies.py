@@ -31,17 +31,26 @@ rule leaves byte for byte as they are), tenant authorization, the OAuth
 validator, admission control, the gateway service and server, and the
 client with its credentials and job worker.
 
+``STANDALONE_STACK`` is what the standalone entry point needs besides its
+partial copies: the external-code loaders, the TCP messaging fault
+injector and the multi-process package's ``__init__``.
+
 ``REFERENCE_TESTS`` are test files of the reference run on the port: each is
 written to ``tests/test_torch_ref_<name>`` as the same rule copies it, less
 the definitions ``NOT_PORTED`` names, with ``device="cpu"`` given to every
-``ClusterRuntime`` it builds (the plain version; no device is CUDA) and the
-copy's file name where the file names itself.
+call of ``CPU_CALLS`` it makes (the plain version; no device is CUDA),
+``--device cpu`` added to every command line that starts the port's
+standalone, the repository's own directory on the ``PYTHONPATH`` it gives
+a child, and the copy's file name where the file names itself.
 
 The files of ``PARTIAL_COPIES`` are part copy, part rewrite:
 ``engine/kernel_backend.py`` (its device members), the partition, the
-broker and the gateway's cluster runtime (the kernel backend's ``device``
-they pass on). Their copied parts are runs of consecutive reference
-definitions (module level, or members of one class), each written between
+broker, the gateway's cluster runtimes, the chaos harness and the worker
+supervisor (the kernel backend's ``device`` they pass on), the worker's
+and the standalone's entry points (``--device`` and the card guard), and
+the multi-process gateway runtime (its leader routing by term). Their
+copied parts are runs of consecutive reference definitions (module level,
+or members of one class), each written between
 a ``# copied from the reference: <first> .. <last>`` line and an
 ``# end of the copy`` line of the port's file, with the same rule. The
 port's own code around them is left as it is.
@@ -106,18 +115,37 @@ GATEWAY_STACK = (
     "client/credentials.py", "client/client.py", "client/worker.py", "client/__init__.py",
 )
 
+STANDALONE_STACK = (
+    "utils/external_code.py", "testing/chaos_tcp.py", "multiproc/__init__.py",
+)
+
 REFERENCE_TESTS = (
     "test_gateway_client.py", "test_jobstream.py", "test_oauth.py", "test_multitenancy.py",
     "test_admission.py", "test_metrics_parity.py", "test_logging.py",
+    "test_multiproc.py", "test_external_code.py", "test_chaos.py", "test_tcp_cluster.py",
 )
 
 #: per reference test file, the definitions its copy leaves out, and why
 NOT_PORTED = {
-    "test_admission.py": {
-        "_LoopbackAdmission": "runs the multi-process runtime (multiproc/), not ported yet",
-        "TestLoopbackAdmission": "runs the multi-process runtime (multiproc/), not ported yet",
+    "test_multiproc.py": {
+        "test_env_pinned_cpu_short_circuits":
+            "the port's probe has no JAX_PLATFORMS fast path: the CPU is asked for by device",
+        "test_wedged_probe_degrades_mesh_to_host_devices":
+            "the port never falls to the CPU unasked: a wedged probe stops the entry point "
+            "(tests/test_torch_standalone.py)",
     },
 }
+
+#: the calls a copied test makes that build a kernel backend (or start a
+#: process that does): each is given ``device="cpu"``
+CPU_CALLS = ("ClusterRuntime", "InProcessCluster", "ChaosHarness", "BrokerCfg",
+             "KernelBackend", "worker_cmd")
+#: the module a copied test's command line starts, which is given ``--device cpu``
+STANDALONE_MODULE = "zeebe_tpu_torch.standalone"
+# a child's PYTHONPATH written as an absolute directory of the reference's
+# checkout; the copy gives the child its own checkout's
+_ABSOLUTE_PYTHONPATH = re.compile(r'PYTHONPATH="/[\w/.-]+"')
+_OWN_CHECKOUT = "PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))"
 
 TEST_HEADER = ("# tests/{name} run on the port, written by\n"
                "# ``python zeebe_tpu_torch/testing/copies.py``: do not edit.\n")
@@ -160,6 +188,29 @@ PARTIAL_COPIES = {
         (None, "logger", "GatewayRuntimeBase"),
         ("ClusterRuntime", "_partition_guard", "_resolve"),
     ),
+    "gateway/tcp_runtime.py": (
+        (None, "GATEWAY_RESPONSE_TOPIC", "JOBS_AVAILABLE_TOPIC"),
+        ("TcpClusterRuntime", "start", "submit"),
+    ),
+    "testing/chaos.py": (
+        (None, "_ACTIVE_SEED", "engine_state_equals"),
+        ("ChaosHarness", "close", "assert_no_violations"),
+    ),
+    "multiproc/supervisor.py": (
+        (None, "logger", "WorkerSpec"),
+        ("WorkerSupervisor", "__init__", "status"),
+    ),
+    "multiproc/worker.py": (
+        (None, "CLIENT_COMMAND_TOPIC", "_TestLeak"),
+    ),
+    "multiproc/runtime.py": (
+        (None, "STALE_STATUS_MS", "_M_REQUEST_TIMEOUTS"),
+        ("MultiProcClusterRuntime", "__init__", "_on_remote_jobs_available"),
+        ("MultiProcClusterRuntime", "topology", "_emit_root_span"),
+    ),
+    "standalone.py": (
+        (None, "_gateway_oauth", "_free_ports"),
+    ),
 }
 
 BEGIN = "# copied from the reference: {} .. {}"
@@ -190,29 +241,63 @@ def reference_test_copy(name: str) -> Path:
 
 def as_test_copy(text: str, name: str) -> str:
     """A reference test file as the port runs it: ``as_copied``, less the
-    definitions ``NOT_PORTED`` names, each ``ClusterRuntime(...)`` given
-    ``device="cpu"``, the file's own name (as a string) the copy's, under a
-    header naming its source."""
+    definitions ``NOT_PORTED`` names, each call of ``CPU_CALLS`` given
+    ``device="cpu"`` (where it names no device), each command line that
+    starts the standalone given ``--device cpu``, a child's absolute
+    ``PYTHONPATH`` its own checkout, the file's own name (as a string) the
+    copy's, under a header naming its source."""
     text = as_copied(text).replace(f'"{name}"', f'"{reference_test_copy(name).name}"')
+    text = _ABSOLUTE_PYTHONPATH.sub(_OWN_CHECKOUT, text)
     lines = text.splitlines(keepends=True)
     drop = NOT_PORTED.get(name, {})
-    for node in reversed(ast.parse(text).body):
+    for node, member in _with_class_members(ast.parse(text).body):
         if definition_name(node) in drop:
             first, last = source_lines(text, node)
-            while last < len(lines) and not lines[last].strip():
-                last += 1  # the blank lines after it go too
+            if member:  # the blank lines before a class's member go too
+                while first > 1 and not lines[first - 2].strip():
+                    first -= 1
+            else:  # and those after a module's definition
+                while last < len(lines) and not lines[last].strip():
+                    last += 1
             del lines[first - 1:last]
     text = "".join(lines)
     lines = text.splitlines(keepends=True)
-    calls = [n for n in ast.walk(ast.parse(text)) if isinstance(n, ast.Call)
-             and isinstance(n.func, ast.Name) and n.func.id == "ClusterRuntime"]
-    # before each call's closing parenthesis, the last first so that the
-    # earlier ones keep their offsets
-    for call in sorted(calls, key=lambda c: (c.end_lineno, c.end_col_offset), reverse=True):
-        row, col = call.end_lineno - 1, call.end_col_offset - 1
-        sep = ", " if call.args or call.keywords else ""
-        lines[row] = lines[row][:col] + f'{sep}device="cpu"' + lines[row][col:]
+    inserts = []
+    for node in ast.walk(ast.parse(text)):
+        if isinstance(node, ast.Call) and _called_name(node) in CPU_CALLS and not any(
+                k.arg == "device" for k in node.keywords):
+            sep = ", " if node.args or node.keywords else ""
+            inserts.append((node.end_lineno, node.end_col_offset, f'{sep}device="cpu"'))
+        elif isinstance(node, ast.List) and any(
+                isinstance(e, ast.Constant) and e.value == STANDALONE_MODULE for e in node.elts):
+            inserts.append((node.end_lineno, node.end_col_offset, ', "--device", "cpu"'))
+    # before each closing bracket, the last first so that the earlier ones
+    # keep their offsets
+    for end_line, end_col, added in sorted(inserts, reverse=True):
+        row, col = end_line - 1, end_col - 1
+        lines[row] = lines[row][:col] + added + lines[row][col:]
     return TEST_HEADER.format(name=name) + "".join(lines)
+
+
+def _called_name(call: ast.Call) -> str | None:
+    """The name a call calls: ``f(...)`` or ``module.f(...)``."""
+    if isinstance(call.func, ast.Name):
+        return call.func.id
+    if isinstance(call.func, ast.Attribute):
+        return call.func.attr
+    return None
+
+
+def _with_class_members(body: list[ast.AST]) -> list[tuple[ast.AST, bool]]:
+    """A module's statements and its classes' members, each with whether it
+    is a member, the last first (so that deleting one keeps the earlier
+    ones' lines)."""
+    out = []
+    for node in body:
+        out.append((node, False))
+        if isinstance(node, ast.ClassDef):
+            out.extend((member, True) for member in node.body)
+    return sorted(out, key=lambda pair: pair[0].lineno, reverse=True)
 
 
 def definition_name(node: ast.AST) -> str | None:
@@ -276,7 +361,7 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     stale = []
     copies = [(PORT / rel, as_copied((REFERENCE / rel).read_text()))
-              for rel in ENGINE_STACK + CLUSTER_STACK + GATEWAY_STACK]
+              for rel in ENGINE_STACK + CLUSTER_STACK + GATEWAY_STACK + STANDALONE_STACK]
     copies += [(reference_test_copy(name), as_test_copy((TESTS / name).read_text(), name))
                for name in REFERENCE_TESTS]
     for dst, want in copies:

@@ -7,14 +7,17 @@ must not find out in-process whether it answers: a wedged CUDA driver or
 card can hang the first CUDA call. The probe runs the query in a
 subprocess with a hard deadline — SIGKILL on wedge, never a blocking
 ``wait()`` on an unanswering child — so the one place the hazard is
-handled cannot itself hang. Broker startup (the auto mesh's card count) delegates here.
+handled cannot itself hang. Broker startup (the auto mesh's card count)
+and the broker processes' start-up guard delegate here.
 
 A wedged probe is a *verdict*, not a hang: the diagnostics record
 ``outcome: "probe-killed"`` with the deadline and the kill evidence, and the
 ``zeebe_device_probe_total{outcome}`` counter makes it visible on the
-metrics plane. The reference's startup guard, which pins the CPU when no
-device answers, is not ported here: the port's entry points raise without a
-card instead of running on the CPU unasked.
+metrics plane. The reference's startup guard pins the CPU when no device
+answers; the port's (:func:`require_card`, run by :func:`boot_card` in the
+worker and the standalone) stops the process instead, with the probe's
+verdict: a process serves on the CPU only when it is asked to
+(``--device cpu``), never because the card did not answer.
 """
 
 from __future__ import annotations
@@ -197,3 +200,76 @@ def real_device_count(cwd: str | None = None,
     if res is None or res[0] == "cpu":
         return 0
     return res[1]
+
+
+class NoCardError(RuntimeError):
+    """No CUDA card answered the start-up probe; ``diagnostics`` holds the
+    probe's verdict (outcome, rc, elapsed seconds, the child's stderr tail
+    and what it answered)."""
+
+    def __init__(self, diagnostics: dict) -> None:
+        super().__init__(f"no CUDA card answers the device probe: {diagnostics}")
+        self.diagnostics = diagnostics
+
+
+def require_card() -> dict:
+    """Start-up guard for broker processes, the counterpart of the
+    reference's ``pin_cpu_if_unreachable``: probe the cards in a killable
+    subprocess and raise :class:`NoCardError` unless one answers. It never
+    pins the CPU. Returns the probe's diagnostics (callers log them)."""
+    res, diag = probe_with_diagnostics()
+    if res is None or res[0] != "cuda":
+        raise NoCardError(dict(diag, answer=res))
+    return diag
+
+
+def start_card(device=None) -> dict:
+    """Bring ``device`` (None = the current card) up before a broker process
+    serves, and time each step: ``cuda_s`` (the CUDA context, made by the
+    first allocation on the card), ``library_s`` (the kernel library: built
+    if these sources have none, then loaded) and ``link_s`` (the router's
+    measurement of the card's link, in a child). Each is paid once per
+    process; left to the first kernel group a leader dispatches, it would
+    stall the thread that also drives the partitions' Raft for seconds,
+    and the followers would elect another leader."""
+    import torch
+
+    from zeebe_tpu_torch.ops import kernels
+    from zeebe_tpu_torch.ops.automaton import resolve_device
+    from zeebe_tpu_torch.utils.device_link import shared_router
+
+    dev = resolve_device(device)
+    t0 = time.monotonic()
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize(dev)
+    t1 = time.monotonic()
+    kernels.load()
+    t2 = time.monotonic()
+    with torch.cuda.device(dev):
+        shared_router().accel_device()
+    t3 = time.monotonic()
+    return {"cuda_s": round(t1 - t0, 3), "library_s": round(t2 - t1, 3),
+            "link_s": round(t3 - t2, 3)}
+
+
+def boot_card(device, name: str, warm: bool = True) -> int:
+    """A broker process's start-up on its device: nothing when ``device``
+    asks for the CPU; else :func:`require_card`, then (``warm``)
+    :func:`start_card`. Prints the probe's verdict and the card's start-up
+    seconds on stderr after ``name``. Returns 0, or 2 when no card answers
+    (the process exits with it, the verdict on stderr). None, the default
+    device, is the card."""
+    import torch
+
+    if device is not None and torch.device(device).type == "cpu":
+        return 0
+    try:
+        diag = require_card()
+    except NoCardError as exc:
+        print(f"{name} {exc}; pass --device cpu to serve on the CPU",
+              file=sys.stderr, flush=True)
+        return 2
+    print(f"{name} device probe: {diag}", file=sys.stderr, flush=True)
+    if warm:
+        print(f"{name} card up: {start_card(device)}", file=sys.stderr, flush=True)
+    return 0
