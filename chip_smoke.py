@@ -78,8 +78,8 @@ exit) if any phase fails:
     cluster; Zeebe's published benchmark layout) on a controlled clock over
     the loopback network, each leader's ``KernelBackend(max_group=2048,
     chunk_steps=8)`` on the card; phase 10's definitions deployed on
-    partition 1 and distributed, 900 instances through the leaders'
-    client ingress (300 a partition, round robin, x = i mod 30), every
+    partition 1 and distributed, 600 instances through the leaders'
+    client ingress (200 a partition, round robin, x = i mod 30), every
     job activated and completed in waves of up to 1,000 per type. Every
     instance completes, each partition's log is byte-identical on its three
     replicas and to the same cluster run with ``kernel_backend=False`` on
@@ -129,8 +129,9 @@ exit) if any phase fails:
     (``--workers 3``, 600 creations, the first worker that leads a
     partition killed with SIGKILL after the 300th; the supervisor restarts it and it
     recovers), three broker processes over TCP (300 through broker-0's
-    gateway) and in-process brokers (150). Fails on a non-OK status (but a
-    typed retryable one after the kill, retried and counted), an instance
+    gateway) and in-process brokers (150). Fails on a non-OK status (but
+    the brokers' backpressure, and a typed retryable one after the kill,
+    retried and counted), an instance
     not completed, a partition leader without kernel records on
     ``/cluster/status``, a host record routed to the host or contained by
     the fault seam, a device ladder not HEALTHY, replicas whose stream
@@ -141,7 +142,33 @@ exit) if any phase fails:
     create latency p50/p99 beside phase 14's, each leader's kernel and
     host records and the supervisor's restarts. The workers' launches are
     counted in their own processes: the kernels line does not add them;
-16. prints the kernels line (JSON), then the card line, then the result line.
+16. the engine's gates (``zeebe_tpu_torch/testing/``), each called as a
+    function with no device argument (the card), each failing the smoke on
+    any entry of its own ``violations``: (a) the soak, ``run_soak``'s
+    harness in its CI short mode (5 power-loss crash-restart rounds of 18
+    creations, mid-flush and mid-snapshot) in this process with the port's
+    sanitizer installed; every restart within its recovery budget, a
+    command acked, and every round's leader counting kernel records and
+    launching ``k_chunk`` (counted from 0); (b) device chaos,
+    ``run_device_chaos`` in its quick preset (3 worker processes, 2
+    partitions x replication 3, 30 s drive, 1 kill, compile, dispatch,
+    stall, chunk and corruption faults injected at the seam, every group
+    shadowed; the router on, as in every deployment on the card: a SUSPECT
+    card it biases host-ward is probed through the seam one group a canary
+    interval), every partition's leader counting kernel records on its
+    last status row; (c)
+    serving, ``run_serving`` in its quick preset with the kernel backend on
+    (open-loop arrivals from 128 client streams, calm, overload, a worker
+    kill; SLO, fairness, goodput and fast sheds), every partition's leader
+    showing its backend live on the card and its host records declined at
+    admission (every command of the gate names a tenant; the kernel takes
+    the default tenant's only, as in the reference). Every worker of (b)
+    and (c) must have served on the card (its log's probe and CUDA
+    start-up lines before its serving line). Prints the recovery ms
+    per restart, the faults observed, the corruption accounting, the
+    health cycle, the kills, each worker's start-up, per-tenant latency,
+    goodput, the shed p95 and each gate's wall time;
+17. prints the kernels line (JSON), then the card line, then the result line.
 
 Three paths run the automaton's steps (``ops/kernels.py``): the fused
 chunk, one thread-block cluster per shard and ONE launch per chunk, for
@@ -2261,8 +2288,9 @@ def phase_grpc(card: str, runtime_phase: dict, n_requests: int = 600, clients: i
     group the router sent to the host, or no ``sharded_collect`` launch.
     Prints create latency beside phase 13's ``submit`` latency, the
     gateway's ``gateway_request_latency`` per RPC, the mesh runner's
-    dispatches and coalesced share, the router's counts and the card's
-    busy share of the phase (``torch.profiler``). ``device`` is given to
+    dispatches and coalesced share, the job push's peeks that waited a
+    second for a busy partition, the router's counts and the card's busy
+    share of the phase (``torch.profiler``). ``device`` is given to
     the runtime only where it is not None (a rehearsal on the CPU)."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2287,6 +2315,19 @@ def phase_grpc(card: str, runtime_phase: dict, n_requests: int = 600, clients: i
     runtime = ClusterRuntime(**CLUSTER_SHAPE, kernel_mesh_shards=PARTITIONS,
                              **({} if on_card else {"device": device}))
     runtime.mesh_runner.batch_window_s = MESH_WINDOW_S
+    # the job push's peeks that waited out the partition lock's second (a
+    # busy partition; the peek then answers that there may be jobs)
+    busy_peeks = [0]
+    peek = runtime.has_activatable_jobs
+
+    def timed_peek(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return peek(*args, **kwargs)
+        finally:
+            busy_peeks[0] += time.perf_counter() - t >= 1.0
+
+    runtime.has_activatable_jobs = timed_peek
     gateway = Gateway(runtime)
     client = None
     workers: list = []
@@ -2338,9 +2379,15 @@ def phase_grpc(card: str, runtime_phase: dict, n_requests: int = 600, clients: i
             workers = [JobWorker(client, t, handle, worker_name="smoke",
                                  stream_enabled=True).start() for t in job_types(models)]
             deadline = time.monotonic() + 120.0
-            while len(grpc_outcome(runtime)["completed"]) < n_requests:
+            while len(done := grpc_outcome(runtime)["completed"]) < n_requests:
                 if time.monotonic() > deadline:
-                    raise AssertionError("phase14: the workers did not complete every instance")
+                    waiting = {(pid, t) for pid in range(1, PARTITIONS + 1)
+                               for t in job_types(models)
+                               if runtime.has_activatable_jobs(pid, t)}
+                    raise AssertionError(
+                        f"phase14: the workers completed {len(done)} of {n_requests} "
+                        f"instances in 120 s ({sum(w.handled_count for w in workers)} jobs "
+                        f"handled); (partition, job type) with activatable jobs {waiting}")
                 time.sleep(0.05)
             if on_card:
                 torch.cuda.synchronize()
@@ -2428,12 +2475,13 @@ def phase_grpc(card: str, runtime_phase: dict, n_requests: int = 600, clients: i
         f"({MESH_WINDOW_S * 1e3} ms window) {stats[0]} dispatches of {stats[1]} groups, "
         f"{stats[2]} coalesced ({pct(stats[2] / max(stats[0], 1))} of dispatches); "
         f"sharded_collect launches {launches['sharded_collect']}, run_collect "
-        f"{launches['run_collect']}; router this phase host {host}, card "
+        f"{launches['run_collect']}; job-push peeks that waited a second for a busy "
+        f"partition {busy_peeks[0]}; router this phase host {host}, card "
         f"{router.accel_groups - before[1]}; card busy {pct(busy)} of the phase "
         f"({busy_ms} ms of kernels and copies, torch.profiler)")
     return {"launches": launches["sharded_collect"],
             "run_collect_launches": launches["run_collect"], "latency": lat, "rpcs": rpcs,
-            "mesh": stats, "busy": busy, "wall": wall}
+            "mesh": stats, "busy": busy, "wall": wall, "busy_peeks": busy_peeks[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -2491,8 +2539,10 @@ class ShapeRun:
         self.lock = threading.Lock()
 
     def create(self, client, kind: str, process: str, x: int) -> int:
-        """One creation; in the failover window a typed retryable status is
-        retried (and counted), anything else fails the phase."""
+        """One creation; the broker's backpressure (RESOURCE_EXHAUSTED, a
+        rejection the client retries by the protocol) and, in the failover
+        window, a typed retryable status are retried (and counted), anything
+        else fails the phase."""
         import grpc
 
         t0 = time.perf_counter()
@@ -2502,7 +2552,7 @@ class ShapeRun:
                 break
             except grpc.RpcError as exc:
                 code = exc.code().name
-                if not (self.failover and code in RETRYABLE):
+                if not (code == "RESOURCE_EXHAUSTED" or (self.failover and code in RETRYABLE)):
                     raise AssertionError(f"phase15 {self.name}: CreateProcessInstance "
                                          f"answered {code}: {exc.details()}") from exc
                 with self.lock:
@@ -2835,8 +2885,9 @@ def phase_standalone(card: str, grpc_phase: dict, device=None, requests=(600, 30
     creations, the first worker that leads a partition killed with SIGKILL after
     half of them), the TCP cluster (three processes, ``requests[1]``
     through broker-0's gateway) and in-process brokers (``requests[2]``),
-    each 3 partitions x replication 3. Fails on a non-OK status (but a typed
-    retryable one in the workers shape's failover window), an instance not
+    each 3 partitions x replication 3. Fails on a non-OK status (but
+    backpressure, and a typed retryable one in the workers shape's failover
+    window, each retried and counted), an instance not
     completed, a leader without kernel records, a forbidden host record, a
     device ladder not HEALTHY, replicas that disagree or miss a completion
     the client saw, an exit code other than 0 after SIGTERM or a surviving
@@ -2875,6 +2926,268 @@ def phase_standalone(card: str, grpc_phase: dict, device=None, requests=(600, 30
             f"kernel library s, link s, worker main to serving s) {res['boots']}; timeline "
             f"(s after the start, by log line) {res['timeline']}")
     return out
+
+# ---------------------------------------------------------------------------
+# phase 16: the engine's gates
+
+
+def worker_boots(directory: Path) -> dict:
+    """Each worker's start-ups from its ``worker.log`` (the supervisor tees
+    a worker's stderr there): worker -> [{probe_s, cuda_s, library_s,
+    link_s, main_s}, ...], one entry a life."""
+    return {log_path.parent.name: standalone_boot_lines(log_path.read_text(errors="replace"))
+            for log_path in sorted(directory.glob("*/worker.log"))}
+
+
+def check_workers_on_the_card(gate: str, boots: dict, device) -> None:
+    """Every worker served after bringing the card up (its probe and the
+    CUDA context), and no life served without the card, unless a rehearsal
+    asked for the CPU (a life on the CPU logs no probe). A life stopped
+    while it started (a restart at the gate's end) may lack its last
+    lines."""
+    if not boots:
+        raise AssertionError(f"phase16 {gate}: no worker logs")
+    if device is not None:
+        return
+    for worker, lives in boots.items():
+        served = [life for life in lives if "main_s" in life]
+        if not served or not all("cuda_s" in life for life in served):
+            raise AssertionError(f"phase16 {gate}: {worker} did not serve on the card: {lives}")
+
+
+def kernel_soak(cfg, directory, device):
+    """The soak harness with its leader's kernel records read around each
+    round's traffic (one broker: a round's leader is one partition of one
+    life; a restart starts a new backend, counting from 0) and the
+    ``k_chunk`` launches so far."""
+    from zeebe_tpu_torch.testing.soak import SoakHarness
+
+    class KernelSoak(SoakHarness):
+        def _records(self) -> int:
+            return self._leader().processor.kernel_backend.accounting.kernel_records
+
+        def _traffic_round(self, round_no: int) -> None:
+            before = self._records()
+            super()._traffic_round(round_no)
+            self.rounds_seen.append(
+                {"round": round_no, "kernelRecords": self._records() - before,
+                 "launches": A.launch_counts()["run_collect"]})
+
+    harness = KernelSoak(cfg, directory=directory, device=device)
+    harness.rounds_seen = []
+    return harness
+
+
+def gate_soak(card: str, device=None, cfg=None) -> dict:
+    """16a: ``run_soak``'s harness in its CI short mode (5 power-loss
+    crash-restart rounds of 18 creations, mid-flush and mid-snapshot) in
+    this process, the port's sanitizer installed; its violations must be
+    empty (a sanitizer violation raises, in any thread), every restart
+    recovered within budget, a command acked, and every round's leader
+    counts kernel records and launches ``k_chunk`` (counted from 0)."""
+    from zeebe_tpu_torch.testing import sanitizer
+    from zeebe_tpu_torch.testing.soak import SoakConfig
+
+    cfg = cfg or SoakConfig()
+    raised = []
+    hook = threading.excepthook
+    threading.excepthook = lambda args: (raised.append(args), hook(args))
+    sanitizer.install()
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="zeebe-soak-") as tmp:
+            A.reset_launch_counts()
+            harness = kernel_soak(cfg, tmp, device)
+            report = harness.run()
+            launches = A.launch_counts()["run_collect"]
+    finally:
+        sanitizer.uninstall()
+        threading.excepthook = hook
+    wall = time.perf_counter() - t0
+    rounds = harness.rounds_seen
+    problems = list(report["violations"])
+    problems += [f"thread {a.thread.name}: {a.exc_value!r}" for a in raised]
+    if report["restarts"] != cfg.rounds or not report["withinBudget"]:
+        problems.append(f"restarts {report['restarts']} of {cfg.rounds}, within budget "
+                        f"{report['withinBudget']}")
+    if report["ackedCommands"] < 1:
+        problems.append("no command acked")
+    if len(rounds) != cfg.rounds or any(r["kernelRecords"] <= 0 for r in rounds):
+        problems.append(f"a round without kernel records: {rounds}")
+    if problems:
+        raise AssertionError(f"phase16 soak: {problems[:10]}")
+    launched = [r["launches"] for r in rounds]
+    if any(b <= a for a, b in zip([0] + launched, launched)):
+        raise AssertionError(f"phase16 soak: a round without k_chunk launches: {rounds}")
+    log(f"phase16 soak [{card}]: {cfg.rounds} crash-restart rounds x {cfg.traffic_per_round} "
+        f"creations in process on {'the card' if device is None else device}, sanitizer "
+        f"installed; restarts {report['restarts']}, recovery ms per restart "
+        f"{[r['durationMs'] for r in report['recoveries']]} (budget {report['budgetMs']}), "
+        f"acked {report['ackedCommands']}, exports {report['exports']}, snapshot kinds "
+        f"{report['snapshotKinds']}, max chain {report['maxChainLength']}; per round (kernel "
+        f"records on its leader, k_chunk launches so far) "
+        f"{[(r['kernelRecords'], r['launches']) for r in rounds]}, k_chunk launches "
+        f"{launches}; no violation; {wall:.1f} s")
+    return {"report": report, "rounds": rounds, "launches": launches, "wall_s": wall}
+
+
+class LastStatusRows:
+    """Keeps the workers' last status rows when a gate stops its
+    multi-process runtime (the rows ``/cluster/status`` serves)."""
+
+    def __enter__(self) -> dict:
+        from zeebe_tpu_torch.multiproc import runtime as R
+
+        self.cls, self.stop, self.rows = R.MultiProcClusterRuntime, \
+            R.MultiProcClusterRuntime.stop, {}
+        stop, rows = self.stop, self.rows
+
+        def keeping(runtime) -> None:
+            rows.update(json.loads(json.dumps(runtime._worker_status, default=str)))
+            stop(runtime)
+
+        self.cls.stop = keeping
+        return self.rows
+
+    def __exit__(self, *exc) -> None:
+        self.cls.stop = self.stop
+
+
+def leader_rows(rows: dict, partitions: int) -> dict:
+    """Partition -> (worker, kernelCoverage) of the row naming its leader
+    in the highest term, from the workers' last status rows."""
+    out = {}
+    for worker, status in rows.items():
+        for pid, part in status.get("partitions", {}).items():
+            if part.get("role") == "leader" and (
+                    int(pid) not in out or part.get("term", -1) > out[int(pid)][2]):
+                out[int(pid)] = (worker, part.get("kernelCoverage", {}), part.get("term", -1))
+    if sorted(out) != list(range(1, partitions + 1)):
+        raise AssertionError(f"phase16: a partition without a leader row: {rows}")
+    return {pid: (worker, cov) for pid, (worker, cov, _) in out.items()}
+
+
+def gate_device_chaos(card: str, device=None, cfg=None) -> dict:
+    """16b: ``run_device_chaos`` in its quick preset (3 worker processes, 2
+    partitions x replication 3, a 30 s drive, 1 kill, every group shadowed,
+    the watchdog at 450 ms), its workers on the card (no device argument):
+    the gate's own checks (delivery, replica CRCs, every configured fault
+    class observed, every corruption caught before commit, a full
+    SUSPECT -> QUARANTINED -> canary -> HEALTHY cycle) must find nothing,
+    every worker must have served on the card, and every partition's leader
+    must count kernel records on its last status row."""
+    from zeebe_tpu_torch.testing.device_chaos import DeviceChaosConfig, run_device_chaos
+
+    cfg = cfg or DeviceChaosConfig(device=device)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="zeebe-device-chaos-") as tmp, \
+            LastStatusRows() as rows:
+        report = run_device_chaos(cfg, tmp)
+        boots = worker_boots(Path(tmp))
+    wall = time.perf_counter() - t0
+    kills = [e for e in report["events"] if e["action"] == "kill"]
+    summary = (f"requests {report['requests']}, outcomes {report['outcomes']}; faults observed "
+               f"{report['deviceFaultsObserved']}; corruption accounting "
+               f"{report['corruptionAccounting']}; health cycle {report['healthCycle']}; "
+               f"kills {kills}, restarts {report.get('workerRestarts')}; log records "
+               f"{report['logRecords']}; gate wall {report['wallSeconds']} s")
+    if report["violations"]:
+        raise AssertionError(f"phase16 device chaos: {report['violations'][:10]} ({summary})")
+    check_workers_on_the_card("device chaos", boots, cfg.device)
+    leaders = {pid: (worker, cov.get("kernelRecords", 0), cov.get("hostRecords", 0),
+                     cov.get("dominantHostReason"))
+               for pid, (worker, cov) in leader_rows(rows, cfg.partitions).items()}
+    if any(records <= 0 for _, records, _, _ in leaders.values()):
+        raise AssertionError(f"phase16 device chaos: a leader without kernel records: {leaders}")
+    log(f"phase16 device chaos [{card}]: {cfg.workers} workers x {cfg.partitions} partitions x "
+        f"replication {cfg.replication} on {'the card' if cfg.device is None else cfg.device}, "
+        f"{cfg.drive_seconds} s drive, the router on; {summary}; "
+        f"leaders' (worker, kernel records, host records, dominant host reason) {leaders}; "
+        f"no violation; {wall:.1f} s")
+    log(f"phase16 device chaos boots [{card}]: per worker, per life (probe s, CUDA context s, "
+        f"kernel library s, link s, worker main to serving s) {boots}")
+    return {"report": report, "boots": boots, "leaders": leaders, "wall_s": wall}
+
+
+def failover_timeline(report: dict) -> list:
+    """The gateway's routing after a gate's first worker restart: (ms since
+    the restart, leader by partition) for each change of its leader map,
+    from the gate's gateway flight recorder."""
+    events = sorted((e for ring in report.get("gatewayFlight", {}).get("partitions", {}).values()
+                     for e in ring if e.get("kind") in ("worker_restart", "routing_epoch")),
+                    key=lambda e: e["t"])
+    restart = next((e["t"] for e in events if e["kind"] == "worker_restart"), None)
+    if restart is None:
+        return []
+    return [(e["t"] - restart, e["leaders"]) for e in events
+            if e["kind"] == "routing_epoch" and e["t"] >= restart - 1000]
+
+
+def gate_serving(card: str, device=None, cfg=None) -> dict:
+    """16c: ``run_serving`` in its quick preset with the kernel backend on
+    (3 worker processes, 2 partitions x replication 3, open-loop Poisson
+    arrivals from 128 client streams, calm, overload and a worker kill),
+    the workers on the card: the gate's own checks (SLO p50 <= 1,000 ms
+    and p99 <= 5,000 ms, fairness, goodput >= 0.7, fast sheds, no untyped
+    error) must find nothing, and every worker must have served on the
+    card. Every command of the gate names a tenant, and the kernel
+    backend admits only the default tenant's (the reference's rule,
+    ``zeebe_tpu/engine/kernel_backend.py:1476``): each partition's leader
+    must show its backend live on the card (its coverage block, the
+    ladder HEALTHY, no shadow mismatch) and its host records declined at
+    admission (``head-not-admittable``), not routed or contained."""
+    from zeebe_tpu_torch.testing.serving import ServingConfig, run_serving
+
+    cfg = cfg or dataclasses.replace(ServingConfig(device=device), kernel_backend=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="zeebe-serving-") as tmp, LastStatusRows() as rows:
+        report = run_serving(cfg, tmp)
+        boots = worker_boots(Path(tmp))
+    wall = time.perf_counter() - t0
+    failover = failover_timeline(report)
+    if report["violations"]:
+        raise AssertionError(f"phase16 serving: {report['violations'][:10]} (well-behaved "
+                             f"{report.get('wellBehaved')}; kills {report['events']}; routing "
+                             f"after the restart, ms: {failover})")
+    check_workers_on_the_card("serving", boots, cfg.device)
+    leaders = {}
+    for pid, (worker, cov) in leader_rows(rows, cfg.partitions).items():
+        device_state = cov.get("device", {})
+        leaders[pid] = (worker, cov.get("kernelRecords", 0), cov.get("hostRecords", 0),
+                        cov.get("dominantHostReason"), device_state.get("state"))
+        if (cov.get("kernelRecords", 0) + cov.get("hostRecords", 0) <= 0
+                or not str(cov.get("dominantHostReason", "head-not-admittable:")).startswith(
+                    "head-not-admittable:")
+                or device_state.get("state") != "HEALTHY"
+                or device_state.get("shadowMismatches", 0)):
+            raise AssertionError(f"phase16 serving: partition {pid}'s leader {worker}: {cov}")
+    tenants = {name: {"kind": t["kind"], "offered": t["offered"],
+                      "p50/p99 ms by phase": {ph: (s.get("p50Ms"), s.get("p99Ms"))
+                                              for ph, s in t["ackedByPhase"].items()},
+                      "shed p95 ms": t["shedLatency"].get("p95Ms")}
+               for name, t in report["tenants"].items()}
+    well = report["wellBehaved"]
+    log(f"phase16 serving [{card}]: {cfg.workers} workers x {cfg.partitions} partitions x "
+        f"replication {cfg.replication} on {'the card' if cfg.device is None else cfg.device}, "
+        f"kernel backend on; requests {report['requests']}, outcomes {report['outcomes']}; "
+        f"well-behaved calm p50/p99 {well['calm'].get('p50Ms')}/{well['calm'].get('p99Ms')} ms, "
+        f"under load {well['underLoad'].get('p50Ms')}/{well['underLoad'].get('p99Ms')} ms; "
+        f"fairness {report.get('fairness')}; goodput {report.get('goodput')}; kills "
+        f"{report['kills']}, the gateway's leaders after the restart (ms, leaders) {failover}; "
+        f"leaders' (worker, kernel records, host records, dominant host "
+        f"reason, ladder) {leaders}; "
+        f"gate wall {report['wallSeconds']} s; no violation; {wall:.1f} s")
+    log(f"phase16 serving tenants [{card}]: {tenants}")
+    log(f"phase16 serving boots [{card}]: {boots}")
+    return {"report": report, "leaders": leaders, "boots": boots, "wall_s": wall}
+
+
+def phase_gates(card: str, device=None) -> dict:
+    """Phase 16: the soak, device-chaos and serving gates, each called as a
+    function with no device argument (the card; ``device`` only in a
+    rehearsal on the CPU)."""
+    return {"soak": gate_soak(card, device), "device_chaos": gate_device_chaos(card, device),
+            "serving": gate_serving(card, device)}
 
 
 def main() -> int:
@@ -2927,10 +3240,11 @@ def main() -> int:
     phase_telemetry(slice_info, dev, card)
     sequential = phase_engine(card)
     serving = phase_serving(card, sequential)
-    cluster = phase_cluster(card, 900)
+    cluster = phase_cluster(card, 600)
     runtime = phase_runtime(card, n_requests=300)
     front = phase_grpc(card, runtime, n_requests=300)
     phase_standalone(card, front)
+    phase_gates(card)
     timing["decision"] = {**decision["bench"]}
     worst["decision"] = decision["err"]
     log(f"sharded timings [{card}] at {N_SHARDS} shards of the serving geometry: "

@@ -134,3 +134,42 @@ def test_auto_mesh_shards_over_two_or_more_cards(cards, shards, monkeypatch):
     cpu = SimpleNamespace(cfg=B.BrokerCfg(partition_count=3, device="cpu"),
                           _injected_mesh_runner=None, _owned_mesh_runner=None)
     assert B.Broker._mesh_runner(cpu) is None
+
+
+def failover_ms(tmp_path, seed: int) -> int:
+    """Milliseconds from isolating an elected leader of a 3-node Raft group
+    (a controlled clock, 10 ms ticks) to a new leader among the other two."""
+    import random
+
+    from test_torch_ref_raft import Cluster
+    from zeebe_tpu_torch.cluster.raft import RaftRole
+
+    cluster = Cluster(tmp_path / f"seed-{seed}")
+    try:
+        for i, node in enumerate(cluster.nodes.values()):
+            node._rng = random.Random(1000 * seed + i)
+        dead = cluster.elect().member_id
+        cluster.run(1000)
+        cluster.net.isolate(dead)
+        others = [n for m, n in cluster.nodes.items() if m != dead]
+        for waited in range(10, 20_000, 10):
+            cluster.clock.advance(10)
+            for node in others:
+                node.tick()
+            cluster.net.deliver_all()
+            if any(n.role == RaftRole.LEADER for n in others):
+                return waited
+        raise AssertionError("no new leader in 20 s")
+    finally:
+        cluster.close()
+
+
+def test_a_dead_leaders_followers_elect_within_one_election_timeout(tmp_path):
+    """A follower whose timer fired grants the other's pre-vote: the first
+    election after a leader's death starts when the second follower's timer
+    fires (1,250-2,500 ms after the last heartbeat), not a timer later."""
+    from zeebe_tpu_torch.cluster.raft import ELECTION_TIMEOUT_MS
+
+    waits = sorted(failover_ms(tmp_path, seed) for seed in range(20))
+    assert waits[len(waits) // 2] < ELECTION_TIMEOUT_MS, waits
+    assert sum(w < ELECTION_TIMEOUT_MS + 500 for w in waits) >= 18, waits

@@ -2,9 +2,9 @@
 differs is named here.
 
 Every module of ``testing/copies.py``'s ``CLUSTER_STACK`` equals
-``as_copied`` of its reference. The partition, the broker and the gateway's
-cluster runtime are partial copies (``PARTIAL_COPIES``): their marked runs
-are what the copy script writes, and every other reference member is in
+``as_copied`` of its reference. The partition, the broker, Raft and the
+gateway's cluster runtime are partial copies (``PARTIAL_COPIES``): their
+marked runs are what the copy script writes, and every other reference member is in
 ``PORT_MEMBERS`` below: either the reference's member plus the kernel
 backend's ``device`` (and, on ``InProcessCluster``, ``kernel_backend``) —
 held to the reference's with those names taken out — or rewritten whole,
@@ -47,14 +47,24 @@ PORT_MEMBERS = {
         ("InProcessCluster", "__init__"): {"device", "kernel_backend"},
         ("InProcessCluster", "add_broker"): {"device", "kernel_backend"},
     },
+    "cluster/raft.py": {
+        ("RaftNode", "_start_prevote"):
+            "drops the leader when the timer fires, as raft's pre-candidate does: the "
+            "reference's kept it and denied every first pre-vote after a leader's death",
+    },
     "gateway/broker_client.py": {
         ("ClusterRuntime", "__init__"): {"device"},
+        ("ClusterRuntime", "has_activatable_jobs"):
+            "answers True where the partition's lock is held past the peek's second, as "
+            "the other runtimes answer for a leader they cannot peek at: the reference's "
+            "False lost the job push's notification",
     },
 }
 #: imports a partial copy adds to the reference's
 ADDED_IMPORTS = {
     "broker/partition.py": {"from zeebe_tpu_torch.ops.automaton import resolve_device"},
     "broker/broker.py": {"import torch"},
+    "cluster/raft.py": set(),
     "gateway/broker_client.py": set(),
 }
 PARTIAL = sorted(PORT_MEMBERS)

@@ -9,7 +9,8 @@ is ported); all of
 ``tests/test_device_faults.py``. Then the port's own: a group the router
 sends to the host runs the plain version on a CPU backend and writes the
 same log, counted in ``host_groups``, while on the card it is declined to
-the sequential engine; a backend on the CPU never consults the card; the router measures a card it can see and stays off without one;
+the sequential engine, but for the probes of a SUSPECT card, which cross
+the device-fault seam on the card; a backend on the CPU never consults the card; the router measures a card it can see and stays off without one;
 the control plane's routing actuator writes the shared router; and the
 killable probe of the cards.
 """
@@ -233,6 +234,59 @@ def test_host_bias_on_the_card_lets_the_suspect_ladder_clear(tmp_path, monkeypat
         assert router.accel_device() is router._accel
     finally:
         h.close()
+
+
+def test_a_suspect_card_biased_host_ward_is_probed_through_the_seam(tmp_path):
+    """While SUSPECT, the routing controller biases every group host-ward,
+    and on the card those groups are declined before the device-fault seam.
+    One group per canary interval, the first an interval after SUSPECT
+    latched, probes the card all the same: it runs on the card, through the
+    seam, under forced shadow. A fault there escalates the ladder to
+    QUARANTINED (whose canaries re-prove the card) instead of leaving it
+    SUSPECT, and the failed probe's command runs on the sequential engine."""
+    from zeebe_tpu_torch.testing.chaos_device import DeviceChaosController, DeviceFaultPlan
+
+    chaos = DeviceChaosController(DeviceFaultPlan(seed=0, dispatch_fail_p=1.0))
+    kb.install_device_chaos(chaos)
+    probed = EngineHarness(tmp_path / "probed", use_kernel_backend=True, device="cpu")
+    sequential = EngineHarness(tmp_path / "sequential")
+    router = _measured_router(1e-5)
+    router.route_threshold_s = float("inf")
+    clock = [1000.0]
+    try:
+        backend = probed.kernel_backend
+        backend.router = router
+        _on_the_card(backend)
+        dispatched = []
+        begin = backend._begin_dispatch
+
+        def spy(pg, dispatch):
+            dispatched.append((pg.dev, pg.shadow))
+            return begin(pg, dispatch)
+
+        backend._begin_dispatch = spy
+        health = backend.health
+        health._clock = lambda: clock[0]
+        health.cfg.canary_interval_ms = 5_000
+        health.cfg.quarantine_faults = 2
+        health.cfg.suspect_clear_ms = 10**9
+        health.note_fault("test-fault")
+        for h in (probed, sequential):
+            h.deploy(_one_task())
+            h.create_instance("one_task", {"x": 1})
+        assert backend.accounting.reasons.get("routed-host") == router.host_groups == 1
+        assert not dispatched and health.state == "SUSPECT"
+        clock[0] += 5.0
+        for h in (probed, sequential):
+            h.create_instance("one_task", {"x": 2})
+        assert dispatched == [(backend.device, True)] and router.accel_groups == 1
+        assert chaos.counts["dispatch_fail"] == 1
+        assert backend.accounting.reasons.get("device-dispatch-error") == 1
+        assert health.state == "QUARANTINED"
+        assert _log(probed) == _log(sequential)
+    finally:
+        probed.close()
+        sequential.close()
 
 
 def test_cpu_backend_never_consults_the_card(tmp_path, monkeypatch):

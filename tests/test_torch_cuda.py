@@ -1225,3 +1225,29 @@ def test_standalone_workers_shape_serves_on_the_card(cuda, tmp_path):
         survivors = proc.kill()
     assert survivors == []
     assert {k >> 51 for k in keys} == {1, 2, 3}
+
+
+def test_soak_on_the_card_has_no_violations_and_kernel_records(cuda, tmp_path):
+    """``run_soak(SoakConfig(rounds=2, traffic_per_round=8))`` with no
+    device: the in-process cluster's leader on the card; both power-loss
+    restarts recover within budget with no violation, every round's leader
+    counts kernel records, and ``k_chunk`` was launched."""
+    from zeebe_tpu_torch.testing import soak
+
+    kernels.load()
+    records = []
+
+    class Counting(soak.SoakHarness):
+        def _traffic_round(self, round_no: int) -> None:
+            backend = self._leader().processor.kernel_backend
+            before = backend.accounting.kernel_records
+            super()._traffic_round(round_no)
+            records.append(backend.accounting.kernel_records - before)
+
+    A.reset_launch_counts()
+    harness = Counting(soak.SoakConfig(rounds=2, traffic_per_round=8), directory=tmp_path)
+    report = harness.run()
+    assert report["violations"] == []
+    assert report["restarts"] == 2 and report["withinBudget"]
+    assert len(records) == 2 and min(records) > 0
+    assert A.launch_counts()["run_collect"] > 0

@@ -3,7 +3,8 @@ containment, sampled shadow verification and the health ladder.
 
 The chaos plane, the ladder and their shared machinery are copies (their
 text is held to the reference's); the engine-free classes of
-``tests/test_device_faults.py`` run here against the copies. The seam itself
+``tests/test_device_faults.py`` run here against the copies, and its
+``TestCorruptionAccountingWaiver`` on the port's device-chaos gate. The seam itself
 is exercised on the port's ``run_group`` on the CPU (the plain version):
 whatever the chaos plane does — raise, stall, corrupt — a group comes back
 either with the clean run's steps or declined with a typed reason.
@@ -24,6 +25,7 @@ import pytest
 import torch
 
 from test_torch_tables import as_copied
+from torch_cluster_flows import case_id, reference_tests, run_on_the_port
 from zeebe_tpu_torch.engine import kernel_backend as kb
 from zeebe_tpu_torch.engine.device_health import (
     HEALTHY,
@@ -67,6 +69,23 @@ def _clean_device_plane():
 def test_module_is_a_copy(path):
     ref = (REPO / "zeebe_tpu" / path).read_text()
     assert (REPO / "zeebe_tpu_torch" / path).read_text() == as_copied(ref)
+
+
+#: the corruption ledger's accounting of the device-chaos gate
+#: (``testing/device_chaos.check_corruption_accounting``), the reference's
+#: tests run on the port
+WAIVER_CASES = [c for c in reference_tests("test_device_faults")
+                if c[1] == "TestCorruptionAccountingWaiver"]
+
+
+@pytest.mark.parametrize("case", WAIVER_CASES, ids=case_id)
+def test_corruption_accounting_waiver_passes_on_the_port(case, tmp_path):
+    run_on_the_port(case, tmp_path)
+
+
+def test_waiver_cases_cover_the_class():
+    assert [c[2] for c in WAIVER_CASES] == ["test_surviving_life_gets_no_waiver",
+                                            "test_waiver_is_tail_only_even_for_dead_lives"]
 
 
 WATCHDOG_DEFS = ("DeviceWedgedError", "install_device_chaos", "device_chaos",

@@ -48,13 +48,23 @@ REWRITTEN = {
     "utils/device_link.py": "the router's card and host are torch devices; link timed on torch",
     "broker/partition.py": "partial copy: the kernel backend's device (test_torch_cluster_copies)",
     "broker/broker.py": "partial copy: BrokerCfg.device, the card count (test_torch_cluster_copies)",
-    "gateway/broker_client.py": "partial copy: ClusterRuntime's device (test_torch_cluster_copies)",
+    "cluster/raft.py": "partial copy: a pre-vote drops the leader (test_torch_cluster_copies)",
+    "gateway/broker_client.py": "partial copy: ClusterRuntime's device and peek "
+                                "(test_torch_cluster_copies)",
     "gateway/tcp_runtime.py": "partial copy: TcpClusterRuntime's device (test_torch_standalone)",
     "testing/chaos.py": "partial copy: ChaosHarness's device (test_torch_standalone)",
     "multiproc/supervisor.py": "partial copy: the workers' --device (test_torch_standalone)",
     "multiproc/worker.py": "partial copy: --device and the card guard (test_torch_standalone)",
     "multiproc/runtime.py": "partial copy: leader routing by term (test_torch_standalone)",
     "standalone.py": "partial copy: --device and the card guard (test_torch_standalone)",
+    "testing/soak.py": "partial copy: the chaos harness's device (test_torch_gates)",
+    "testing/scale_soak.py": "partial copy: the chaos harness's device (test_torch_gates)",
+    "testing/consistency.py": "partial copy: the workers' --device (test_torch_gates)",
+    "testing/torture.py": "partial copy: the workers' --device (test_torch_gates)",
+    "testing/device_chaos.py": "partial copy: the workers' --device (test_torch_gates)",
+    "testing/serving.py": "partial copy: the workers' --device (test_torch_gates)",
+    "testing/fleetday.py": "partial copy: the workers' --device (test_torch_gates)",
+    "testing/autotune.py": "partial copy: the workers' --device (test_torch_gates)",
 }
 
 

@@ -22,6 +22,7 @@ import json
 import logging
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -105,7 +106,8 @@ def test_reference_test_copy_keeps_every_test_but_the_named(name):
     not_ported = copies.NOT_PORTED.get(name, {})
     dropped = {t for t in ref if set(t.split(".")) & set(not_ported)}
     assert port == ref - dropped
-    assert len(dropped) == (2 if name == "test_multiproc.py" else 0)
+    # each entry left out a test (or a class of tests) of the reference
+    assert all(any(n in t.split(".") for t in dropped) for n in not_ported)
 
 
 def test_runtimes_of_the_test_copies_run_on_the_cpu():
@@ -126,6 +128,53 @@ def test_runtimes_of_the_test_copies_run_on_the_cpu():
                     for e in call.elts):
                 assert ast.unparse(call).endswith("'--device', 'cpu']"), (name, ast.unparse(call))
     assert calls >= 20
+
+
+# ---------------------------------------------------------------------------
+# the job push while a partition is busy
+
+
+def test_a_stream_opened_while_its_partition_is_busy_gets_its_job():
+    """A job created before its stream opens is pushed even when the
+    partition's ownership thread holds the partition past the push's peek
+    (a second): the peek then answers that there may be jobs, and the push
+    waits for the partition instead of dropping the stream's sweep."""
+    from zeebe_tpu_torch.client import ZeebeTpuClient
+    from zeebe_tpu_torch.gateway import ClusterRuntime, Gateway
+    from zeebe_tpu_torch.models.bpmn import Bpmn, to_bpmn_xml
+
+    runtime = ClusterRuntime(broker_count=1, partition_count=1, replication_factor=1,
+                             device="cpu")
+    runtime.start()
+    gateway = Gateway(runtime)
+    gateway.start()
+    client = ZeebeTpuClient(gateway.address)
+    handle = None
+    try:
+        client.deploy_resource(("busy.bpmn", to_bpmn_xml(
+            Bpmn.create_executable_process("busy").start_event("s")
+            .service_task("t", job_type="busy_work").end_event("e").done())))
+        key = client.create_instance("busy").process_instance_key
+        deadline = time.monotonic() + 10.0
+        while not runtime.has_activatable_jobs(1, "busy_work"):
+            assert time.monotonic() < deadline, "the job was never created"
+            time.sleep(0.02)
+        lock = runtime._plocks[1]
+        lock.acquire()
+        try:
+            handle = runtime.job_streams.add_stream("busy_work", "w", 10_000)
+            time.sleep(1.5)  # past the peek's second
+        finally:
+            lock.release()
+        job_key, job = handle.jobs.get(timeout=10.0)
+        assert job["processInstanceKey"] == key
+        client.complete_job(job_key, {})
+    finally:
+        if handle is not None:
+            runtime.job_streams.remove_stream(handle)
+        client.close()
+        gateway.stop()
+        runtime.stop()
 
 
 # ---------------------------------------------------------------------------

@@ -344,7 +344,7 @@ class TestExporterFaultIsolation:
         )
         from zeebe_tpu_torch.testing import EngineHarness
 
-        h = EngineHarness()
+        h = EngineHarness(device="cpu")
         try:
             flaky = FailNTimesExporter(10_000)
             director = ExporterDirector(h.stream, h.db, {"flaky": flaky},

@@ -183,7 +183,7 @@ class TestEvaluateDecision:
         import json as _json
 
         from zeebe_tpu_torch.gateway.proto import gateway_pb2 as pb
-        from tests.test_dmn import DISH_DMN
+        import torch_kernel_flows; torch_kernel_flows.port_module("test_dmn"); from _kflows_zeebe_tpu_torch_test_dmn import DISH_DMN
 
         client, _ = stack
         client.deploy_resource(("dish.dmn", DISH_DMN))

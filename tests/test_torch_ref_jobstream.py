@@ -36,7 +36,7 @@ def one_task(pid="p", job_type="w"):
 
 class TestJobYieldAndTimeout:
     def test_yield_returns_job_to_activatable(self):
-        h = EngineHarness()
+        h = EngineHarness(device="cpu")
         try:
             h.deploy(one_task("y", "ywork"))
             h.create_instance("y")
@@ -56,7 +56,7 @@ class TestJobYieldAndTimeout:
             h.close()
 
     def test_yield_rejected_when_not_activated(self):
-        h = EngineHarness()
+        h = EngineHarness(device="cpu")
         try:
             h.deploy(one_task("y2", "y2work"))
             h.create_instance("y2")
@@ -73,7 +73,7 @@ class TestJobYieldAndTimeout:
             h.close()
 
     def test_update_timeout_moves_deadline(self):
-        h = EngineHarness()
+        h = EngineHarness(device="cpu")
         try:
             h.deploy(one_task("ut", "utwork"))
             h.create_instance("ut")

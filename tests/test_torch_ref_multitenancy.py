@@ -70,7 +70,7 @@ def create_tenant(h: EngineHarness, pid: str, tenant: str, variables=None,
 
 class TestTenantScopedDefinitions:
     def test_same_process_id_versions_independently_per_tenant(self):
-        h = EngineHarness()
+        h = EngineHarness(device="cpu")
         try:
             deploy_tenant(h, one_task("shared", "wa"), "tenant-a")
             deploy_tenant(h, one_task("shared", "wb"), "tenant-b")
@@ -89,7 +89,7 @@ class TestTenantScopedDefinitions:
             h.close()
 
     def test_instance_runs_in_its_tenant_and_jobs_carry_it(self):
-        h = EngineHarness()
+        h = EngineHarness(device="cpu")
         try:
             deploy_tenant(h, one_task("tp", "twork"), "tenant-a")
             create_tenant(h, "tp", "tenant-a")
@@ -108,7 +108,7 @@ class TestTenantScopedDefinitions:
             h.close()
 
     def test_creation_cannot_cross_tenants(self):
-        h = EngineHarness()
+        h = EngineHarness(device="cpu")
         try:
             deploy_tenant(h, one_task("only-a", "w"), "tenant-a")
             create_tenant(h, "only-a", "tenant-b", request_id=9)
@@ -119,7 +119,7 @@ class TestTenantScopedDefinitions:
             h.close()
 
     def test_authorized_tenants_claim_enforced(self):
-        h = EngineHarness()
+        h = EngineHarness(device="cpu")
         try:
             h.write_command(
                 command(ValueType.DEPLOYMENT, DeploymentIntent.CREATE, {
@@ -138,7 +138,7 @@ class TestTenantScopedDefinitions:
     def test_default_tenant_records_stay_unchanged(self):
         # parity guard: a default-tenant instance's records must not grow a
         # tenantId field (kernel/burst output equality depends on it)
-        h = EngineHarness()
+        h = EngineHarness(device="cpu")
         try:
             h.deploy(one_task("plain", "pw"))
             h.create_instance("plain")
@@ -150,7 +150,7 @@ class TestTenantScopedDefinitions:
 
 class TestTenantScopedJobs:
     def test_activation_filters_by_tenant(self):
-        h = EngineHarness()
+        h = EngineHarness(device="cpu")
         try:
             deploy_tenant(h, one_task("jp", "jwork"), "tenant-a")
             create_tenant(h, "jp", "tenant-a")
@@ -170,7 +170,7 @@ class TestTenantScopedJobs:
 
 class TestTenantScopedMessages:
     def test_correlation_does_not_cross_tenants(self):
-        h = EngineHarness()
+        h = EngineHarness(device="cpu")
         try:
             deploy_tenant(h, msg_catch("mc", "greet"), "tenant-a")
             create_tenant(h, "mc", "tenant-a", variables={"key": "k1"})
@@ -208,7 +208,7 @@ class TestTenantScopedMessages:
 
 class TestTenantTimerStart:
     def test_timer_start_event_fires_in_its_tenant(self):
-        h = EngineHarness()
+        h = EngineHarness(device="cpu")
         try:
             xml = to_bpmn_xml(
                 Bpmn.create_executable_process("tstart")
@@ -242,7 +242,7 @@ class TestTenantScopedDecisions:
 </definitions>"""
 
     def test_same_decision_id_isolated_per_tenant(self):
-        h = EngineHarness()
+        h = EngineHarness(device="cpu")
         try:
             h.write_command(
                 command(ValueType.DEPLOYMENT, DeploymentIntent.CREATE, {
@@ -270,7 +270,7 @@ class TestTenantScopedDecisions:
 
 class TestTenantMessageIdDedup:
     def test_message_id_dedup_is_tenant_scoped(self):
-        h = EngineHarness()
+        h = EngineHarness(device="cpu")
         try:
             def publish(tenant, req_id):
                 h.write_command(

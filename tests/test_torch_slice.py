@@ -28,14 +28,13 @@ from zeebe_tpu.models.bpmn import parse_bpmn_xml as ref_parse
 from zeebe_tpu.models.bpmn import to_bpmn_xml as ref_to_xml
 from zeebe_tpu.models.bpmn import transform as ref_transform
 from zeebe_tpu.ops import automaton as JA
-from zeebe_tpu.ops.parity import engine_intent_sequence
 from zeebe_tpu.ops.tables import compile_tables as ref_compile
 from zeebe_tpu.ops.tables import f64_key_planes
 from zeebe_tpu.testing import EngineHarness
 from zeebe_tpu_torch.engine import kernel_backend as kb
 from zeebe_tpu_torch.ops import automaton as TA
 from zeebe_tpu_torch.ops import kernels
-from zeebe_tpu_torch.ops.parity import run_with_events
+from zeebe_tpu_torch.ops.parity import engine_intent_sequence, run_with_events
 from zeebe_tpu_torch.ops.tables import K_TASK
 
 REPO = Path(__file__).resolve().parents[1]

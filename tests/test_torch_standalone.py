@@ -60,8 +60,14 @@ PORT_MEMBERS = {
         (None, "worker_cmd"): "adds --device to the spawn line when a device is given",
     },
     "multiproc/runtime.py": {
-        ("MultiProcClusterRuntime", "_leader_of"): "the fresh row of the highest term, not "
-                                                   "the first leader row in member order",
+        ("MultiProcClusterRuntime", "_leader_of"): "the fresh row of the highest term of a "
+                                                   "live worker, not the first leader row in "
+                                                   "member order",
+        ("MultiProcClusterRuntime", "_on_worker_status"): "drops a row of a life that has "
+                                                          "ended",
+        ("MultiProcClusterRuntime", "_on_worker_restart"): "drops the dead life's last row",
+        ("MultiProcClusterRuntime", "submit"): "with no live leader known, waits for one "
+                                               "instead of resending to a dead worker",
     },
     "multiproc/worker.py": {
         (None, "main"): "--device to the broker's config; the card guard and start-up "
@@ -283,6 +289,7 @@ def _rows(*rows):
         runtime._worker_status = {member: {"partitions": {"1": {"role": role, "term": term}}}
                                   for member, role, term, _ in rows}
         runtime._status_seen_ms = {member: now_ms - 1000.0 * age for member, _, _, age in rows}
+        runtime.supervisor = None
         out.append(runtime)
     return out
 
@@ -314,6 +321,132 @@ def test_leader_of_is_the_fresh_leader_of_the_highest_term(case):
     # fresh row at most names a leader the two agree
     assert ref._leader_of(1) == ref_leader
     assert port._leader_of(2) is None and ref._leader_of(2) is None
+
+
+class _Supervisor:
+    """The supervisor's view of its workers' processes: worker-i runs as
+    pid 100 + i, but the ``dead`` ones."""
+
+    def __init__(self, *dead) -> None:
+        self.pids = {f"worker-{i}": (None if f"worker-{i}" in dead else 100 + i)
+                     for i in range(3)}
+
+    def pid_of(self, member: str):
+        return self.pids.get(member)
+
+
+def _supervised(port, supervisor):
+    """Each row as pushed by the live process of its worker."""
+    port.supervisor = supervisor
+    for member, status in port._worker_status.items():
+        status["workerPid"] = 100 + int(member.split("-")[1])
+    return port
+
+
+def test_a_dead_supervised_worker_leads_nothing():
+    """Its fresh row still names it the leader; until the member elected
+    after it pushes its row, no member leads (a request waits for the new
+    leader instead of going to the dead process)."""
+    rows = [("worker-0", "leader", 1, 0.1), ("worker-1", "follower", 1, 0.1),
+            ("worker-2", "follower", 1, 0.1)]
+    _, port = _rows(*rows)
+    _supervised(port, _Supervisor("worker-0"))
+    assert port._leader_of(1) is None
+    port._worker_status["worker-1"]["partitions"]["1"] = {"role": "leader", "term": 2}
+    assert port._leader_of(1) == "worker-1"
+    port.supervisor = _Supervisor()
+    port._worker_status["worker-1"]["partitions"]["1"] = {"role": "follower", "term": 1}
+    assert port._leader_of(1) == "worker-0"
+    # a row pushed by an earlier life of the worker: not its live process
+    port._worker_status["worker-0"]["workerPid"] = 99
+    assert port._leader_of(1) is None
+
+
+def test_a_restart_drops_the_dead_lifes_row():
+    """The restarted worker is alive again, starting; its last life's row
+    (leader of partition 1) no longer routes to it."""
+    from zeebe_tpu_torch.observability.flight_recorder import FlightRecorder
+
+    _, port = _rows(("worker-0", "leader", 1, 0.1), ("worker-1", "follower", 1, 0.1))
+    _supervised(port, _Supervisor())
+    port.flight = FlightRecorder("gateway-0", data_dir=None)
+    port.partition_count, port.routing_epoch, port._last_leaders = 1, 0, {}
+    port._on_worker_restart("worker-0", 1)
+    assert "worker-0" not in port._worker_status
+    assert port._leader_of(1) is None
+    assert port.flight.snapshot()["eventsRecorded"] == 1
+    # the dead life's last push, still in flight, does not bring it back;
+    # the new life's does
+    last = {"partitions": {"1": {"role": "leader", "term": 1}}, "workerPid": 99}
+    port._on_worker_status("worker-0", {"status": last})
+    assert "worker-0" not in port._worker_status
+    port._on_worker_status("worker-0", {"status": {**last, "workerPid": 100}})
+    assert port._worker_status["worker-0"]["workerPid"] == 100
+
+
+class _Net:
+    """Messaging that records every send and delivers nothing."""
+
+    def __init__(self) -> None:
+        self.sent = []
+
+    def subscribe(self, topic, handler) -> None:
+        pass
+
+    def send(self, member, topic, payload) -> None:
+        self.sent.append((member, topic, payload))
+
+
+def test_a_request_to_a_worker_that_died_waits_for_the_next_leader(monkeypatch):
+    """The leader dies after the request reached it; the next leader's row
+    arrives 1.5 s later. The request goes there as soon as its first
+    resend slice (1 s) finds no live leader, without resending to the dead
+    worker or waiting out the backoff to its next check (3 s)."""
+    from zeebe_tpu_torch.multiproc.runtime import MultiProcClusterRuntime
+    from zeebe_tpu_torch.protocol import ValueType, command
+    from zeebe_tpu_torch.protocol.intent import ProcessInstanceCreationIntent
+
+    monkeypatch.delenv("ZEEBE_GATEWAY_REQUEST_TIMEOUT_MS", raising=False)
+    net, supervisor = _Net(), _Supervisor()
+    runtime = MultiProcClusterRuntime(
+        "gateway-0", {f"worker-{i}": ("127.0.0.1", 1 + i) for i in range(2)},
+        partition_count=1, replication_factor=2, messaging=net, supervisor=supervisor)
+
+    def push(member, role, term):
+        runtime._on_worker_status(member, {"status": {
+            "partitions": {"1": {"role": role, "term": term}},
+            "workerPid": supervisor.pid_of(member)}})
+
+    push("worker-0", "leader", 1)
+    push("worker-1", "follower", 1)
+    record = command(ValueType.PROCESS_INSTANCE_CREATION, ProcessInstanceCreationIntent.CREATE,
+                     {"bpmnProcessId": "p", "version": -1, "variables": {}})
+    out = {}
+
+    def submit():
+        t0 = time.monotonic()
+        out["reply"] = runtime.submit(1, record, timeout_s=10.0, meta=out.setdefault("meta", {}))
+        out["seconds"] = time.monotonic() - t0
+
+    thread = threading.Thread(target=submit)
+    thread.start()
+    while not net.sent:
+        time.sleep(0.005)
+    supervisor.pids["worker-0"] = None  # SIGKILLed with the request inside
+    time.sleep(1.5)
+    push("worker-1", "leader", 2)
+    deadline = time.monotonic() + 5.0
+    while not any(member == "worker-1" for member, _, _ in net.sent):
+        assert time.monotonic() < deadline, net.sent
+        time.sleep(0.005)
+    request_id = net.sent[-1][2]["requestId"]
+    runtime._on_worker_response("worker-1", {"requestId": request_id,
+                                             "record": record.to_bytes(),
+                                             "commandPosition": 7})
+    thread.join(timeout=10)
+    assert [member for member, _, _ in net.sent] == ["worker-0", "worker-1"]
+    assert out["meta"]["worker"] == "worker-1" and out["meta"]["commandPosition"] == 7
+    assert 1.4 < out["seconds"] < 2.5
 
 
 # ---------------------------------------------------------------------------

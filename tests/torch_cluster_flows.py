@@ -69,9 +69,23 @@ def recording(side: str, kernel_backend: bool = True, capture: bool = True,
     partitions on the sequential engine. Without ``planes`` every broker,
     on either side, runs without its metrics sampler (and so without the
     control plane, which reads it) and its stack profiler: both sample the
-    process-wide registry and threads, the bulk of a long run's CPU here."""
+    process-wide registry and threads, the bulk of a long run's CPU here.
+    On the reference, Raft takes the port's one difference for the run: a
+    member whose election timer fires drops its leader before its pre-vote
+    (``zeebe_tpu_torch/cluster/raft.py``), so both sides elect alike after
+    a leader's death."""
     broker_mod = importlib.import_module(f"{side}.broker.broker")
+    raft_mod = importlib.import_module(f"{side}.cluster.raft")
     made: list = []
+    start_prevote = raft_mod.RaftNode._start_prevote
+
+    def prevote_dropping_the_leader(self) -> None:
+        # the port's _start_prevote: the leader is dropped where the
+        # reference goes on to its pre-vote
+        if ((self._election_safe() or self._last_resort_due())
+                and self.role != raft_mod.RaftRole.CANDIDATE):
+            self.leader_id = None
+        start_prevote(self)
 
     class Recording(broker_mod.Broker):
         def __init__(self, cfg, *args, **kwargs) -> None:
@@ -94,10 +108,13 @@ def recording(side: str, kernel_backend: bool = True, capture: bool = True,
 
     saved = broker_mod.Broker
     broker_mod.Broker = Recording
+    if side == REF:
+        raft_mod.RaftNode._start_prevote = prevote_dropping_the_leader
     try:
         yield made
     finally:
         broker_mod.Broker = saved
+        raft_mod.RaftNode._start_prevote = start_prevote
 
 
 def _records(made: list) -> list:

@@ -107,14 +107,17 @@ def port_module(name: str) -> types.ModuleType:
     flow: its harnesses' kernel backends and its mesh runners on the CPU,
     as ``run_flow`` puts them in the flow's own process."""
     module = flow_module(name, PORT)
+    if hasattr(module, "EngineHarness") and not hasattr(module.EngineHarness, "on_the_cpu"):
 
-    class CpuHarness(module.EngineHarness):
-        def __init__(self, *args, **kwargs) -> None:
-            if kwargs.get("use_kernel_backend") and kwargs.get("device") is None:
-                kwargs["device"] = "cpu"
-            super().__init__(*args, **kwargs)
+        class CpuHarness(module.EngineHarness):
+            on_the_cpu = True
 
-    module.EngineHarness = CpuHarness
+            def __init__(self, *args, **kwargs) -> None:
+                if kwargs.get("use_kernel_backend") and kwargs.get("device") is None:
+                    kwargs["device"] = "cpu"
+                super().__init__(*args, **kwargs)
+
+        module.EngineHarness = CpuHarness
     if hasattr(module, "MeshKernelRunner"):
         module.MeshKernelRunner = _cpu_mesh_runner(module.MeshKernelRunner)
     return module

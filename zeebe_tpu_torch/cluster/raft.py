@@ -33,6 +33,7 @@ from zeebe_tpu_torch.journal import SegmentedJournal
 from zeebe_tpu_torch.journal.journal import CorruptedJournalError
 from zeebe_tpu_torch.protocol.msgpack import packb, unpackb
 
+# copied from the reference: HEARTBEAT_INTERVAL_MS .. RaftRole
 HEARTBEAT_INTERVAL_MS = 250
 ELECTION_TIMEOUT_MS = 2_500
 MAX_ENTRIES_PER_APPEND = 64
@@ -53,11 +54,13 @@ class RaftRole(enum.Enum):
     FOLLOWER = "follower"
     CANDIDATE = "candidate"
     LEADER = "leader"
+# end of the copy
 
 
 class RaftNode:
     """One member of one partition's replication group."""
 
+    # copied from the reference: __init__ .. _last_resort_due
     def __init__(
         self,
         messaging: MessagingService,
@@ -608,6 +611,7 @@ class RaftNode:
         leader that can never be elected)."""
         return (self.clock_millis() - self._last_heartbeat_ms
                 >= LAST_RESORT_ELECTION_MS)
+    # end of the copy
 
     def _start_prevote(self) -> None:
         """Pre-vote phase: probe electability without disturbing the term
@@ -624,6 +628,13 @@ class RaftNode:
             return
         self._election_deadline_ms = self._next_election_deadline()
         self._prevotes = {self.member_id}
+        # this member's timer fired: it has stopped hearing its leader, so
+        # it drops it, as raft's pre-candidate does. It then grants the
+        # pre-vote of another follower that timed out too, where keeping the
+        # leader denied it for the leader's stickiness window (2,500 ms
+        # after the last heartbeat, longer than any timer's 1,250-2,500):
+        # every first pre-vote after a leader's death was denied
+        self.leader_id = None
         if self._quorum(len(self._prevotes)):
             self._start_election()
             return
@@ -636,6 +647,7 @@ class RaftNode:
                 "prevote": True,
             })
 
+    # copied from the reference: _start_election .. committed_entries
     def _start_election(self) -> None:
         self._prevotes = set()  # stale grants must not re-trigger elections
         self._m_elections.inc()
@@ -1135,3 +1147,4 @@ class RaftNode:
             entry["index"] = rec.index
             out.append(entry)
         return out
+    # end of the copy

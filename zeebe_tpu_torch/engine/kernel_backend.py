@@ -1392,6 +1392,40 @@ def _watchdog_call(fn, deadline_s: float):
     return box["value"]
 
 
+#: the last probe of a SUSPECT card the router sends host-ward, in the
+#: ladder's milliseconds, by ladder (one ladder a process, shared by its
+#: partitions)
+_SUSPECT_PROBES: dict[int, float] = {}
+_SUSPECT_PROBES_LOCK = threading.Lock()
+
+
+def _suspect_probe_due(health) -> bool:
+    """Whether the next group the router sends to the host probes the card
+    instead: while the ladder is SUSPECT, one group per canary interval
+    across the partitions sharing the ladder, the first an interval after
+    the fault that latched SUSPECT.
+
+    The reference's host-routed groups run its program on the host through
+    the device-fault seam, so its ladder goes on hearing of faults while the
+    routing controller biases a SUSPECT device host-ward. The port declines
+    a host-routed group to the sequential engine before the seam; without
+    these probes a SUSPECT card would see no group, could neither escalate
+    to QUARANTINED (and so never reach the canaries that re-prove it) nor
+    show a fault-free group, and would stay SUSPECT for as long as its
+    quiet window."""
+    if health.state != SUSPECT:
+        return False
+    now = health.now_ms()
+    transitions = health.transitions
+    latched = transitions[-1]["atMs"] if transitions else 0.0
+    with _SUSPECT_PROBES_LOCK:
+        last = max(_SUSPECT_PROBES.get(id(health), 0.0), latched)
+        if now - last < health.cfg.canary_interval_ms:
+            return False
+        _SUSPECT_PROBES[id(health)] = now
+        return True
+
+
 #: runtime errors that are no device fault: the seam lets them propagate
 _NOT_DEVICE_FAULTS = (kernels.KernelBuildError, NotImplementedError, RecursionError)
 
@@ -1993,7 +2027,8 @@ class KernelBackend(DeviceDefense):
     runs the plain PyTorch version). On the card the link-aware router
     (``router``, the process-wide one by default) pins canaries and counts
     groups; a group it sends to the host is declined to the sequential
-    engine, never run on the CPU. The device-fault seam is its base
+    engine, never run on the CPU, but for the probes of a SUSPECT card
+    (``_suspect_probe_due``), which run on the card. The device-fault seam is its base
     class; the members below the constructor that the reference has are
     copies but for the device members (``_start_kernel``,
     ``_await_kernel``, ``_group_state``, ``_dispatch_first_chunk``,
@@ -2938,7 +2973,7 @@ class KernelBackend(DeviceDefense):
         # deployed sets are different programs
         pg.bucket = (self.registry.tables_fingerprint, pg.I, pg.T)
         # link-aware choice: the card, or the host; None = routing off
-        route = None
+        route, probe = None, False
         if self.router is not None:
             if pg.canary:
                 # a canary must probe the SUSPECT card: pin it rather than
@@ -2949,6 +2984,12 @@ class KernelBackend(DeviceDefense):
                 route = self.router.accel_device()
             if route is None:
                 route = self.router.choose(pg.bucket)
+            if (route is not None and route.type == "cpu" and self.device.type == "cuda"
+                    and _suspect_probe_due(self.health)):
+                # a SUSPECT card is probed all the same, through the seam
+                # under forced shadow: its faults escalate the ladder, a
+                # clean probe commits (``_suspect_probe_due``)
+                route, probe = self.router.accel_device(), True
         if route is not None:
             self.router.count(route)
             if route.type == "cpu" and self.device.type == "cuda":
@@ -2968,7 +3009,7 @@ class KernelBackend(DeviceDefense):
         pg.pipeline_chunks = pg.dev.type == "cuda"
         # shadow sampling decided BEFORE dispatch: only sampled groups pay
         # the fetched-row retention (canaries are forced-shadow)
-        pg.shadow = pg.canary or self._shadow_sampled()
+        pg.shadow = pg.canary or probe or self._shadow_sampled()
         t0 = time.perf_counter()
         self._begin_dispatch(pg, lambda: self._dispatch_first_chunk(pg))
         if not pg.failed:

@@ -184,7 +184,7 @@ class ClusterRuntime(GatewayRuntimeBase):
         self._running = False
         self._threads: list[threading.Thread] = []
 
-    # copied from the reference: _partition_guard .. _resolve
+    # copied from the reference: _partition_guard .. cluster_status
     def _partition_guard(self, partition_id: int):
         import contextlib
 
@@ -305,6 +305,7 @@ class ClusterRuntime(GatewayRuntimeBase):
         status = cluster_status(list(self.brokers.values()))
         status["partitionsCount"] = self.partition_count
         return status
+    # end of the copy
 
     # -- partition selection ---------------------------------------------------
 
@@ -314,12 +315,21 @@ class ClusterRuntime(GatewayRuntimeBase):
         JOB_BATCH ACTIVATE into the replicated log (reference:
         LongPollingActivateJobsHandler parks requests until jobsAvailable).
         ``tenant_ids`` keeps a tenant-filtered long-poll from flooding the log
-        with empty activations when only other tenants' jobs exist."""
+        with empty activations when only other tenants' jobs exist.
+
+        Where the partition's ownership thread holds its lock past the
+        peek's second, the answer is True, as the multi-process and TCP
+        runtimes answer for a leader they cannot peek at: the caller writes
+        a real activation, whose ``submit`` waits for the lock up to its own
+        deadline (and the push dispatcher re-arms when that raises). An
+        answer of False there lost jobs: the dispatcher had taken the
+        partition's jobs-available notification, and no other comes for jobs
+        already created, so they were never pushed."""
         lock = self._plocks.get(partition_id)
-        if lock is None or not lock.acquire(timeout=1.0):
-            # unknown partition, or its ownership thread is stalled: report
-            # "no jobs" — long-polls and the push dispatcher both retry
+        if lock is None:
             return False
+        if not lock.acquire(timeout=1.0):
+            return True
         try:
             leader = self._leader_partition(partition_id)
             if leader is None or leader.db is None:
@@ -337,6 +347,7 @@ class ClusterRuntime(GatewayRuntimeBase):
 
     # -- request path ----------------------------------------------------------
 
+    # copied from the reference: submit .. _resolve
     def submit(self, partition_id: int, record: Record,
                timeout_s: float = 10.0) -> Record:
         """Write a command to the partition leader, await the engine response

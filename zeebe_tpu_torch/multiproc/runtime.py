@@ -30,7 +30,13 @@ rows (``_leader_of``); the reference takes the first row in member order
 that says leader, so a killed worker's last row kept its partitions routed
 to the dead process until the row went stale (15 s), past the 10 s
 default deadline of a request, whenever the worker restarted slower than
-that. The rest is the reference's, copied.
+that. A supervised worker's status row counts only while the process
+that pushed it lives (its ``workerPid`` is the supervisor's): a killed
+worker leads nothing, a push still in flight from it is dropped, and its
+restart drops its last row. A request whose leader died waits for the
+next leader's row and goes there at once, instead of resending to a
+process that is dead or still starting (~18 s on the card) through its
+backoff (1, 3, 7 s). The rest is the reference's, copied.
 """
 
 from __future__ import annotations
@@ -85,7 +91,7 @@ _M_REQUEST_TIMEOUTS = _REG.counter(
 class MultiProcClusterRuntime(GatewayRuntimeBase):
     """The gateway's view of a supervised multi-process worker cluster."""
 
-    # copied from the reference: __init__ .. _on_remote_jobs_available
+    # copied from the reference: __init__ .. await_leaders
     def __init__(self, node_id: str, workers: dict[str, tuple[str, int]],
                  partition_count: int, replication_factor: int = 1,
                  bind: tuple[str, int] | None = None,
@@ -228,20 +234,30 @@ class MultiProcClusterRuntime(GatewayRuntimeBase):
                 return
             time.sleep(0.05)
         raise RuntimeError("partition leaders not elected in time")
+    # end of the copy
 
     # -- worker status ---------------------------------------------------------
 
     def _on_worker_status(self, sender: str, payload: dict) -> None:
         status = payload.get("status")
         if isinstance(status, dict):
+            if (self.supervisor is not None
+                    and status.get("workerPid") != self.supervisor.pid_of(sender)):
+                # a row of a life that has ended (a push still in flight
+                # when the process died): not the member's any more
+                return
             self._worker_status[sender] = status
             self._status_seen_ms[sender] = time.time() * 1000.0
             self._observe_routing_table()
 
     def _on_worker_restart(self, node_id: str, restarts: int) -> None:
+        # the dead life's last row names partitions it no longer leads:
+        # forget it until the new life pushes its own
+        self._worker_status.pop(node_id, None)
         self.flight.record(0, "worker_restart", worker=node_id,
                            restarts=restarts)
 
+    # copied from the reference: _observe_routing_table .. _on_remote_jobs_available
     def _observe_routing_table(self) -> None:
         """Bump the routing epoch when the leader map changes — every
         re-route decision is attributable to a concrete epoch in the
@@ -265,7 +281,12 @@ class MultiProcClusterRuntime(GatewayRuntimeBase):
         that died keeps its last row, naming it leader, until the row goes
         stale; the member elected after it pushes a higher term, and
         routing follows that one at once instead of the dead member's row
-        winning by its place in the member list."""
+        winning by its place in the member list. A supervised worker's row
+        counts only while the process that pushed it lives (its
+        ``workerPid`` is the supervisor's), and a restart drops the dead
+        life's row (``_on_worker_restart``): until a new leader's row
+        arrives, a request waits for it instead of going to a dead or
+        still-starting process."""
         now_ms = time.time() * 1000.0
         key = str(partition_id)
         best, best_term = None, None
@@ -273,6 +294,9 @@ class MultiProcClusterRuntime(GatewayRuntimeBase):
             status = self._worker_status.get(member)
             if status is None:
                 continue
+            if (self.supervisor is not None
+                    and status.get("workerPid") != self.supervisor.pid_of(member)):
+                continue  # its process died: a dead life leads nothing
             if now_ms - self._status_seen_ms.get(member, 0.0) > STALE_STATUS_MS:
                 continue  # silent worker: likely dead, don't route to it
             part = status.get("partitions", {}).get(key, {})
@@ -285,7 +309,7 @@ class MultiProcClusterRuntime(GatewayRuntimeBase):
 
     # -- topology / status -----------------------------------------------------
 
-    # copied from the reference: topology .. _emit_root_span
+    # copied from the reference: topology .. _on_worker_response
     def topology(self) -> dict:
         brokers = []
         for member in self.worker_members:
@@ -386,6 +410,7 @@ class MultiProcClusterRuntime(GatewayRuntimeBase):
                 "dedupe": payload.get("dedupe"),
             }
         event.set()
+    # end of the copy
 
     def submit(self, partition_id: int, record: Record,
                timeout_s: float = 10.0, meta: dict | None = None) -> Record:
@@ -497,7 +522,13 @@ class MultiProcClusterRuntime(GatewayRuntimeBase):
                         break  # deadline exceeded below
                     resend_slice = min(resend_slice * 2, 8.0)
                     current = self._leader_of(partition_id)
-                    if current is not None and current != sent_to:
+                    if current is None:
+                        # no live leader known (the one sent to died): wait
+                        # for the next one's row and send there at once, not
+                        # into the void for the rest of the backoff
+                        sent_to = None
+                        continue
+                    if current != sent_to:
                         sent_to = current
                         reroutes += 1
                         self.flight.record(0, "request_reroute",
@@ -573,6 +604,7 @@ class MultiProcClusterRuntime(GatewayRuntimeBase):
                 latency_ms=((time.perf_counter() - t_admitted) * 1000.0
                             if observe_latency else None))
 
+    # copied from the reference: _emit_root_span .. _emit_root_span
     def _emit_root_span(self, tracer, partition_id: int, record: Record,
                         response: Record, position: int, request_id: int,
                         worker: str | None, latency: float,

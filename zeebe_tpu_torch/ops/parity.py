@@ -3,9 +3,8 @@
 The parity oracle between the automaton and the sequential engine: within
 an instance the order of lifecycle events is identical to one-at-a-time
 processing; across instances the device's slot order replaces the log's
-arrival order. (The reference module's ``engine_intent_sequence`` reads the
-sequential engine's exporter, which this package does not carry; the tests
-take it from the reference.)
+arrival order. ``engine_intent_sequence`` reads the same sequence from the
+sequential engine's exporter (the reference's, copied).
 """
 
 from __future__ import annotations
@@ -83,3 +82,26 @@ def run_with_events(dt, tables: ProcessTables, state: dict, max_steps: int = 200
         for i, evs in decoded.items():
             sequences.setdefault(i, []).extend(evs)
     return state, sequences
+
+
+def engine_intent_sequence(exporter, process_instance_key: int) -> list[tuple[str, str]]:
+    """The comparable sequence from the sequential engine's event stream:
+    PI lifecycle events + job created/completed, keyed by element id."""
+    from zeebe_tpu_torch.protocol import ValueType
+
+    out = []
+    for rec in exporter.all().events():
+        value = rec.record.value
+        if value.get("processInstanceKey") != process_instance_key:
+            continue
+        if rec.record.value_type == ValueType.PROCESS_INSTANCE:
+            intent = rec.record.intent.name
+            if intent in (
+                "ELEMENT_ACTIVATING", "ELEMENT_ACTIVATED", "ELEMENT_COMPLETING",
+                "ELEMENT_COMPLETED", "SEQUENCE_FLOW_TAKEN",
+            ):
+                out.append((value["elementId"], intent))
+        elif rec.record.value_type == ValueType.JOB:
+            if rec.record.intent.name in ("CREATED", "COMPLETED"):
+                out.append((value["elementId"], f"JOB_{rec.record.intent.name}"))
+    return out

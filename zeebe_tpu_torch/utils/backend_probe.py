@@ -228,7 +228,9 @@ def start_card(device=None) -> dict:
     serves, and time each step: ``cuda_s`` (the CUDA context, made by the
     first allocation on the card), ``library_s`` (the kernel library: built
     if these sources have none, then loaded) and ``link_s`` (the router's
-    measurement of the card's link, in a child). Each is paid once per
+    measurement of the card's link, in a child); with whether routing is on
+    and the link cost it predicts for a group (``link_cost_ms``; above
+    ``BackendRouter.LOCAL_LINK_S`` the process declines its groups). Each is paid once per
     process; left to the first kernel group a leader dispatches, it would
     stall the thread that also drives the partitions' Raft for seconds,
     and the followers would elect another leader."""
@@ -245,11 +247,14 @@ def start_card(device=None) -> dict:
     t1 = time.monotonic()
     kernels.load()
     t2 = time.monotonic()
+    router = shared_router()
     with torch.cuda.device(dev):
-        shared_router().accel_device()
+        router.accel_device()
     t3 = time.monotonic()
     return {"cuda_s": round(t1 - t0, 3), "library_s": round(t2 - t1, 3),
-            "link_s": round(t3 - t2, 3)}
+            "link_s": round(t3 - t2, 3), "routing": router.enabled,
+            "link_cost_ms": None if router.link_cost_s() is None
+            else round(1e3 * router.link_cost_s(), 4)}
 
 
 def boot_card(device, name: str, warm: bool = True) -> int:

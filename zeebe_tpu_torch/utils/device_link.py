@@ -183,10 +183,12 @@ _LINK_CODE = (
     "d = torch.device('cuda', int(sys.argv[1]))\n"
     "probe = torch.zeros(2048, dtype=torch.int32)\n"
     "puts, gets = [], []\n"
-    "for _ in range(2):\n"
-    "    t0 = time.perf_counter(); x = probe.to(d); torch.cuda.synchronize(d); "
+    "for _ in range(4):\n"
+    "    time.sleep(0.05)\n"
+    "    for _ in range(8):\n"
+    "        t0 = time.perf_counter(); x = probe.to(d); torch.cuda.synchronize(d); "
     "puts.append(time.perf_counter() - t0)\n"
-    "    t0 = time.perf_counter(); x.cpu(); gets.append(time.perf_counter() - t0)\n"
+    "        t0 = time.perf_counter(); x.cpu(); gets.append(time.perf_counter() - t0)\n"
     "print(min(puts), min(gets))\n"
 )
 
@@ -194,9 +196,15 @@ _LINK_CODE = (
 def _measure_link_subprocess(index: int = 0,
                              timeout: int = 120) -> tuple[float, float] | None:
     """(put_s, get_s) link floor of card ``index`` measured in a killable
-    subprocess, or None (wedged/failed probe). min-of-2 trials each way,
-    tiny (8 KB) payload — the floor, not the bandwidth, is what dominates
-    serving-sized groups."""
+    subprocess, or None (wedged/failed probe). The min over 4 bursts of 8
+    back-to-back trials each way, 50 ms apart, tiny (8 KB) payload — the
+    floor, not the bandwidth, is what dominates serving-sized groups. The
+    reference takes the min of 2 back to back; a worker measures while its
+    siblings start on the same host, and one slow pair there would put the
+    card above ``LOCAL_LINK_S`` for the process's whole life, every group
+    declined to the sequential engine. A burst keeps the path warm (single
+    transfers spaced apart each pay a cold start); the spacing lets one
+    burst land in a quiet moment."""
     import os
     import subprocess
     import sys
