@@ -76,8 +76,10 @@ exit) if any phase fails:
 12. the replicated cluster, deterministic: ``InProcessCluster`` of 3
     brokers, 3 partitions and replication factor 3 (the reference's default
     cluster; Zeebe's published benchmark layout) on a controlled clock over
-    the loopback network, each leader's ``KernelBackend(max_group=2048,
-    chunk_steps=8)`` on the card; phase 10's definitions deployed on
+    the loopback network, without the brokers' control plane (its
+    journal-flush loop paces Raft's commits by the wall clock), each
+    leader's ``KernelBackend(max_group=2048, chunk_steps=8)`` on the
+    card; phase 10's definitions deployed on
     partition 1 and distributed, 600 instances through the leaders'
     client ingress (200 a partition, round robin, x = i mod 30), every
     job activated and completed in waves of up to 1,000 per type. Every
@@ -141,7 +143,21 @@ exit) if any phase fails:
     process's start-up split (probe, CUDA context, kernel library, link),
     create latency p50/p99 beside phase 14's, each leader's kernel and
     host records and the supervisor's restarts. The workers' launches are
-    counted in their own processes: the kernels line does not add them;
+    counted in their own processes: the kernels line does not add them.
+    Against the in-process shape, before its stop, the command line
+    (``python -m zeebe_tpu_torch.cli`` subprocesses, no device argument):
+    ``status``, ``deploy`` of a one_task file, 20 ``create instance``,
+    ``activate jobs`` and ``complete job`` for each of their jobs, ``top
+    --once`` and ``profile --seconds 1 --folded``; after the stop, on its
+    data directory, ``trace`` of each of the 20 instances, ``snapshots``
+    and ``eligibility --deployed``; then ``lint``, ``knobs-doc``,
+    ``eligibility-doc`` and ``metrics-doc --check`` (its broker on the
+    card), and the client-side modules imported in fresh processes. Fails
+    on an exit code other than 0, an instance not completed or whose trace
+    lacks its completion, a leader whose kernel records did not grow over
+    the command line's traffic, or a command's process that loaded torch
+    (``-X importtime``; all but ``metrics-doc`` and ``eligibility
+    --deployed``). Prints each command's wall seconds;
 16. the engine's gates (``zeebe_tpu_torch/testing/``), each called as a
     function with no device argument (the card), each failing the smoke on
     any entry of its own ``violations``: (a) the soak, ``run_soak``'s
@@ -247,7 +263,7 @@ from zeebe_tpu_torch.ops import kernels
 from zeebe_tpu_torch.ops.tables import compile_tables, f64_key_planes
 from zeebe_tpu_torch.parallel import mesh as M
 from zeebe_tpu_torch.parallel import mesh_runner as MR
-from zeebe_tpu_torch.protocol import ValueType, command
+from zeebe_tpu_torch.protocol import Record, ValueType, command
 from zeebe_tpu_torch.protocol.intent import (
     DeploymentIntent,
     JobBatchIntent,
@@ -259,6 +275,7 @@ from zeebe_tpu_torch.testing import EngineHarness
 from zeebe_tpu_torch.testing import workloads as W
 from zeebe_tpu_torch.testing.catalog import ProcessCatalog
 from zeebe_tpu_torch.testing.chaos_device import DeviceChaosController, DeviceFaultPlan
+from zeebe_tpu_torch.testing.import_cost import CLIENT_MODULES, import_once
 from zeebe_tpu_torch.utils.device_link import shared_router
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -1921,7 +1938,12 @@ def run_cluster(n_instances: int, kernel: bool, device, mesh_shards: int = 0) ->
     the wall from deployment to the last completion, every replica's
     outcome and the leaders' kernel backends. ``mesh_shards`` > 0 injects
     one mesh runner of that many shards into every broker (the broker's
-    ``mesh_runner``, as ``ClusterRuntime`` injects its own)."""
+    ``mesh_runner``, as ``ClusterRuntime`` injects its own). The brokers
+    run without their control plane: its journal-flush loop follows the
+    wall clock's fsync latency and then defers Raft's commits by
+    wall-clock milliseconds, so with it the same traffic commits at other
+    ticks of the controlled clock from run to run, and the client's later
+    commands carry other timestamps."""
     from contextlib import nullcontext
     from unittest import mock
 
@@ -1930,7 +1952,7 @@ def run_cluster(n_instances: int, kernel: bool, device, mesh_shards: int = 0) ->
     injected = (mock.patch.object(Broker, "_mesh_runner", lambda broker: runner)
                 if runner is not None else nullcontext())
     with tempfile.TemporaryDirectory() as tmp:
-        with injected:
+        with injected, mock.patch.dict(os.environ, {"ZEEBE_CONTROL_ENABLED": "false"}):
             cluster = InProcessCluster(**CLUSTER_SHAPE, directory=tmp, kernel_backend=kernel,
                                        device=device)
         try:
@@ -1952,6 +1974,25 @@ def run_cluster(n_instances: int, kernel: bool, device, mesh_shards: int = 0) ->
             cluster.close()
     return {"wall": wall, "traffic": traffic, "replicas": replicas, "leaders": leaders,
             "backends": backends, "mesh": runner}
+
+
+def log_entry(log: list, i: int) -> str:
+    """Entry ``i`` of a replica's log (``partition_outcome``) as text: its
+    position, source position, processed flag and record."""
+    if i >= len(log):
+        return "none"
+    position, source, processed, raw = log[i]
+    return (f"position {position} source {source} processed {processed} "
+            f"{json.dumps(Record.from_bytes(raw).to_json_dict(), default=str)[:1500]}")
+
+
+def backend_summary(run: dict) -> dict:
+    """Per partition of one cluster run: its leader's backend's groups,
+    declines by reason, shadow checks and quarantines."""
+    return {pid: {"groups": b.groups_processed, "reasons": dict(b.accounting.reasons),
+                  "shadow": b.health.shadow_checks,
+                  "quarantined": b.shadow_quarantined}
+            for pid, b in run["backends"].items() if b is not None}
 
 
 def kernel_outcome(run: dict, label: str) -> dict:
@@ -2019,7 +2060,10 @@ def phase_cluster(card: str, n_instances: int = 3000, device="cuda") -> dict:
                                 min(len(la), len(lb)))
                 raise AssertionError(f"phase12: partition {pid}'s log differs from the "
                                      f"sequential cluster's at record {diverged} ({label}: "
-                                     f"{len(lb)} against {len(la)})")
+                                     f"{len(lb)} against {len(la)}); {label}: "
+                                     f"{log_entry(lb, diverged)}; sequential: "
+                                     f"{log_entry(la, diverged)}; {label} backends: "
+                                     f"{backend_summary(runs[label])}")
     created = sum(next(iter(got["replicas"][p].values()))["created"]
                   for p in range(1, PARTITIONS + 1))
     completed = sum(next(iter(got["replicas"][p].values()))["completed"]
@@ -2809,10 +2853,221 @@ def check_replicas(run: ShapeRun, seen_jobs: set) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 15's command line: python -m zeebe_tpu_torch.cli against the
+# in-process shape, then offline on its data directory and the doc gates
+
+#: every command runs as ``python -m zeebe_tpu_torch.cli``; ``-X importtime``
+#: lists on stderr each module the process imported
+CLI = [sys.executable, "-X", "importtime", "-m", "zeebe_tpu_torch.cli"]
+#: the commands that build a kernel backend (``metrics-doc``) or import the
+#: kernel registry's module (``eligibility --deployed``) and so load torch;
+#: every other command's process must load neither torch nor JAX
+CLI_TORCH_COMMANDS = ("metrics-doc", "eligibility")
+CLI_PROCESS, CLI_JOB_TYPE, CLI_INSTANCES = "cli_task", "cli_work", 20
+
+
+@dataclasses.dataclass
+class CliRuns:
+    """Each command's wall seconds, a run each, and what its processes
+    loaded of torch and JAX, by command."""
+
+    seconds: dict = dataclasses.field(default_factory=dict)
+    loaded: dict = dataclasses.field(default_factory=dict)
+
+
+def run_cli(args: list[str], runs: CliRuns, timeout: float = 300.0) -> str:
+    """One command line run to its end: its stdout. Fails on an exit code
+    other than 0, and on a process that loaded torch or JAX where its
+    command is not one of ``CLI_TORCH_COMMANDS``."""
+    words = [a for a in args if not a.startswith("-") and ":" not in a]
+    command = words[0]
+    label = " ".join(words[:2]) if command in ("create", "activate", "complete") else command
+    t0 = time.perf_counter()
+    proc = subprocess.run([*CLI, *args], capture_output=True, text=True, timeout=timeout,
+                          cwd=Path(__file__).resolve().parent)
+    runs.seconds.setdefault(label, []).append(time.perf_counter() - t0)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase15 cli: {' '.join(args)} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{cli_errors(proc.stderr)[-3000:]}")
+    loaded = {line.rsplit("|", 1)[-1].strip() for line in proc.stderr.splitlines()
+              if line.startswith("import time:")} & {"torch", "jax"}
+    runs.loaded.setdefault(label, set()).update(loaded)
+    if loaded and command not in CLI_TORCH_COMMANDS:
+        raise AssertionError(f"phase15 cli: {' '.join(args)} loaded {sorted(loaded)}")
+    return proc.stdout
+
+
+def cli_errors(stderr: str) -> str:
+    """A command's stderr less ``-X importtime``'s lines."""
+    return "\n".join(line for line in stderr.splitlines() if not line.startswith("import time:"))
+
+
+def leader_kernel_records(run: ShapeRun) -> dict:
+    """Each partition's leader and its kernel records on /cluster/status."""
+    return {pid: (node, part.get("kernelCoverage", {}).get("kernelRecords", 0))
+            for pid, (node, part) in run.status()["leaders"].items()}
+
+
+def cli_live(run: ShapeRun, gateway: int, client) -> dict:
+    """The command line against the running shape: ``status``; ``deploy`` of
+    a one_task file; ``create instance`` ``CLI_INSTANCES`` times (4 at a
+    time); ``activate jobs`` until every one of their jobs is active and
+    ``complete job`` for each (4 at a time); ``top --once`` and ``profile
+    --seconds 1 --folded`` over the management port. Between the deployment
+    and the creations the smoke's own client creates instances of the new
+    process until every partition has answered (the deployment's
+    distribution; their jobs are the command line's too). Fails on an exit
+    code other than 0, an instance that does not complete, or a partition
+    whose leader's kernel records did not grow over the command line's
+    traffic."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import grpc
+
+    from zeebe_tpu_torch.testing.standalone_run import completed_keys
+
+    address = ["--address", f"127.0.0.1:{gateway}"]
+    management = ["--management", f"http://127.0.0.1:{run.management[0]}"]
+    runs = CliRuns()
+    t0 = time.perf_counter()
+    status = json.loads(run_cli([*address, "status"], runs))
+    if (status["partitionsCount"], status["clusterSize"]) != (3, 3):
+        raise AssertionError(f"phase15 cli: status {status}")
+    before = leader_kernel_records(run)
+    bpmn = run.root / f"{CLI_PROCESS}.bpmn"
+    bpmn.write_text(to_bpmn_xml(Bpmn.create_executable_process(CLI_PROCESS).start_event("s")
+                                .service_task("t", job_type=CLI_JOB_TYPE).end_event("e")
+                                .done()))
+    deployed = json.loads(run_cli([*address, "deploy", str(bpmn)], runs))
+    if deployed["processes"][0]["bpmnProcessId"] != CLI_PROCESS:
+        raise AssertionError(f"phase15 cli: deploy answered {deployed}")
+    probes, answered, deadline = [], set(), time.monotonic() + 60.0
+    while answered != {1, 2, 3}:
+        try:
+            probes.append(client.create_instance(CLI_PROCESS).process_instance_key)
+            answered.add(partition_of(probes[-1]))
+        except grpc.RpcError as exc:
+            if exc.code() != grpc.StatusCode.NOT_FOUND or time.monotonic() > deadline:
+                raise
+            time.sleep(0.05)
+
+    def create(i: int) -> int:
+        out = run_cli([*address, "create", "instance", CLI_PROCESS, "--variables",
+                       json.dumps({"x": i})], runs)
+        return json.loads(out)["processInstanceKey"]
+
+    with ThreadPoolExecutor(4) as pool:
+        keys = list(pool.map(create, range(CLI_INSTANCES)))
+    jobs: dict = {}
+    deadline = time.monotonic() + 120.0
+    while len(jobs) < len(keys) + len(probes):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase15 cli: {len(jobs)} of {len(keys) + len(probes)} "
+                                 f"jobs activated")
+        out = json.loads(run_cli([*address, "activate", "jobs", CLI_JOB_TYPE, "--max-jobs",
+                                  "64"], runs))
+        jobs.update((job["key"], job) for job in out["jobs"])
+    if {job["process_instance_key"] for job in jobs.values()} != set(keys) | set(probes):
+        raise AssertionError("phase15 cli: the activated jobs are not the instances' jobs")
+    with ThreadPoolExecutor(4) as pool:
+        done = list(pool.map(lambda key: json.loads(run_cli(
+            [*address, "complete", "job", str(key)], runs))["completed"],
+            sorted(jobs)))
+    if done != sorted(jobs):
+        raise AssertionError("phase15 cli: complete job answered other keys")
+    deadline = time.monotonic() + 60.0
+    while not set(keys) | set(probes) <= completed_keys(run.root / "completed"):
+        if time.monotonic() > deadline:
+            missing = (set(keys) | set(probes)) - completed_keys(run.root / "completed")
+            raise AssertionError(f"phase15 cli: instances {sorted(missing)} did not complete")
+        time.sleep(0.2)
+    deadline = time.monotonic() + 30.0
+    while True:  # the leaders' coverage after their last group
+        after = leader_kernel_records(run)
+        grew = sorted(pid for pid in (1, 2, 3) if pid in before and pid in after
+                      and after[pid][0] == before[pid][0] and after[pid][1] > before[pid][1])
+        if grew == [1, 2, 3] or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    if grew != [1, 2, 3]:
+        raise AssertionError(f"phase15 cli: leaders' kernel records before {before}, after "
+                             f"{after}: not every partition's grew over the command line's "
+                             f"traffic")
+    top = run_cli(["top", "--once", *management], runs)
+    if "KERNEL" not in top:
+        raise AssertionError(f"phase15 cli: top --once shows no kernel coverage:\n{top}")
+    profile = run_cli(["profile", "--seconds", "1", "--folded", *management], runs)
+    if not profile.strip():
+        raise AssertionError("phase15 cli: profile --folded printed nothing")
+    return {"keys": keys, "probes": probes, "jobs": len(jobs), "runs": runs,
+            "kernel_records": {pid: (before[pid][1], after[pid][1]) for pid in (1, 2, 3)},
+            "top_lines": len(top.splitlines()), "profile_stacks": len(profile.splitlines()),
+            "live_s": time.perf_counter() - t0}
+
+
+def trace_completes(lineage: dict, key: int) -> bool:
+    """Whether a ``trace`` of instance ``key`` holds its process's
+    ELEMENT_COMPLETED record."""
+    nodes = list(lineage["roots"])
+    while nodes:
+        node = nodes.pop()
+        if (node["valueType"], node["intent"], node["key"]) == (
+                "PROCESS_INSTANCE", "ELEMENT_COMPLETED", key):
+            return True
+        nodes.extend(node.get("children", ()))
+    return False
+
+
+def cli_offline(run: ShapeRun, live: dict, device=None) -> dict:
+    """After the shape's clean stop, on its data directory: ``trace`` of
+    every instance the command line created (each must hold its
+    completion), ``snapshots`` and ``eligibility --deployed``; then the doc
+    gates ``lint --check``, ``knobs-doc --check``, ``eligibility-doc
+    --check`` and ``metrics-doc --check`` (with no ``--device``: its broker
+    on the card), and the import probe of the client-side modules."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    runs = live["runs"]
+    t0 = time.perf_counter()
+    broker = run.root / "broker-0"  # every broker holds a replica of all three
+
+    def trace(key: int) -> bool:
+        out = run_cli(["trace", str(key), "--data-dir", str(broker)], runs)
+        return trace_completes(json.loads(out), key)
+
+    with ThreadPoolExecutor(4) as pool:
+        traced = dict(zip(live["keys"], pool.map(trace, live["keys"])))
+    if not all(traced.values()):
+        raise AssertionError(f"phase15 cli: traces without their completion: "
+                             f"{[k for k, ok in traced.items() if not ok]}")
+    snaps = json.loads(run_cli(["snapshots", str(broker)], runs))
+    if len(snaps["partitions"]) != 3:
+        raise AssertionError(f"phase15 cli: snapshots found {snaps['partitions']}")
+    eligibility = json.loads(run_cli(["eligibility", "--deployed", "--data-dir",
+                                      str(run.root)], runs))
+    verdicts = {d["bpmnProcessId"]: d["eligible"] for d in eligibility["definitions"]}
+    if verdicts.get(CLI_PROCESS) is not True:
+        raise AssertionError(f"phase15 cli: eligibility --deployed {verdicts}")
+    for gate in ("lint", "knobs-doc", "eligibility-doc"):
+        run_cli([gate, "--check"], runs)
+    run_cli(["metrics-doc", "--check", *([] if device is None else ["--device", device])], runs)
+    probes = {m: import_once(m, Path(__file__).resolve().parent) for m in CLIENT_MODULES}
+    if any(p.get("loaded") != [] for p in probes.values()):
+        raise AssertionError(f"phase15 cli: modules that load torch or JAX: {probes}")
+    return {"traced": len(traced), "snapshots": {p["partition"]: len(p["snapshots"])
+                                                 for p in snaps["partitions"]},
+            "eligible": verdicts, "offline_s": time.perf_counter() - t0,
+            "metrics_doc_on": "the card" if device is None else device}
+
+
 def run_shape(name: str, root, n_requests: int, clients: int, device,
-              kill_after: int | None = None) -> dict:
+              kill_after: int | None = None, cli: bool = False) -> dict:
     """Start one shape, drive it, check it, stop it; the processes are
-    torn down (SIGTERM, then SIGKILL to every one) whatever happens."""
+    torn down (SIGTERM, then SIGKILL to every one) whatever happens. With
+    ``cli``, the command line runs against it before the stop
+    (``cli_live``) and on its data directory after (``cli_offline``)."""
     from zeebe_tpu_torch.standalone import _free_ports
     from zeebe_tpu_torch.testing.standalone_run import StandaloneProcess, completion_env
 
@@ -2845,6 +3100,7 @@ def run_shape(name: str, root, n_requests: int, clients: int, device,
         client, boot_s, timeline = await_serving(run, gateway, time.monotonic() + 300.0)
         drove = drive_shape(run, client, serving_models(), n_requests, clients, kill_after)
         leaders = check_leaders(run)
+        live = cli_live(run, gateway, client) if cli else None
         restarts = {w: s.get("restarts", 0) for w, s in run.status()["workers"].items()}
         client.close()
         client = None
@@ -2870,7 +3126,10 @@ def run_shape(name: str, root, n_requests: int, clients: int, device,
     boots = [b for text in logs for b in standalone_boot_lines(text)]
     lat = {k: (1e3 * percentile(v, 0.5), 1e3 * percentile(v, 0.99)) for k, v in
            run.latency.items() if v}
-    return {"boot_s": boot_s, "timeline": timeline, "latency": lat, "leaders": leaders, "records": records,
+    if live is not None:
+        live.update(cli_offline(run, live, device))
+    return {"cli": live, "boot_s": boot_s, "timeline": timeline, "latency": lat,
+            "leaders": leaders, "records": records,
             "restarts": restarts, "retried": run.retried, "boots": boots,
             "created": len(run.keys), "one_at_a_time": len(run.latency["warm"]), **drove}
 
@@ -2891,13 +3150,15 @@ def phase_standalone(card: str, grpc_phase: dict, device=None, requests=(600, 30
     completed, a leader without kernel records, a forbidden host record, a
     device ladder not HEALTHY, replicas that disagree or miss a completion
     the client saw, an exit code other than 0 after SIGTERM or a surviving
-    process."""
+    process. The in-process shape also runs the command line
+    (``cli_live``, ``cli_offline``)."""
     root = Path(tempfile.mkdtemp(prefix="zeebe-standalone-"))
     out = {}
     for name, n, kill_after in (("workers", requests[0], requests[0] // 2),
                                 ("tcp", requests[1], None), ("in-process", requests[2], None)):
         t0 = time.perf_counter()
-        res = out[name] = run_shape(name, root, n, clients, device, kill_after)
+        res = out[name] = run_shape(name, root, n, clients, device, kill_after,
+                                    cli=name == "in-process")
         killed = res["killed"]
         failover = ""
         if killed is not None:
@@ -2925,7 +3186,31 @@ def phase_standalone(card: str, grpc_phase: dict, device=None, requests=(600, 30
         log(f"phase15 boot {name} [{card}]: per process start-up (probe s, CUDA context s, "
             f"kernel library s, link s, worker main to serving s) {res['boots']}; timeline "
             f"(s after the start, by log line) {res['timeline']}")
+        if res["cli"] is not None:
+            log_cli(card, res["cli"])
     return out
+
+
+def log_cli(card: str, cli: dict) -> None:
+    """Phase 15's command line lines: what it did, and each command's wall
+    seconds (median and max of its runs) and whether its process loaded
+    torch."""
+    runs = cli["runs"]
+    per = {k: (len(v), round(float(np.median(v)), 3), round(max(v), 3),
+               sorted(runs.loaded.get(k, ())) or "no torch")
+           for k, v in runs.seconds.items()}
+    log(f"phase15 cli [{card}]: python -m zeebe_tpu_torch.cli against the in-process shape "
+        f"(no device argument): status, deploy, {len(cli['keys'])} create instance, "
+        f"{cli['jobs']} jobs activated and completed (with the {len(cli['probes'])} "
+        f"distribution probes' instances), every instance complete; leaders' kernel records "
+        f"(before, after) {cli['kernel_records']}; top --once {cli['top_lines']} lines, "
+        f"profile --folded {cli['profile_stacks']} stacks; {cli['live_s']:.1f} s live; after "
+        f"the stop: {cli['traced']} traces each holding its completion, snapshots per "
+        f"partition {cli['snapshots']}, eligibility --deployed {cli['eligible']}, lint, "
+        f"knobs-doc, eligibility-doc and metrics-doc --check (its broker on "
+        f"{cli['metrics_doc_on']}), the client-side "
+        f"modules load no torch; {cli['offline_s']:.1f} s offline")
+    log(f"phase15 cli seconds [{card}] (runs, median s, max s, torch loaded): {per}")
 
 # ---------------------------------------------------------------------------
 # phase 16: the engine's gates

@@ -24,6 +24,7 @@ from zeebe_tpu_torch.broker import broker as B
 from zeebe_tpu_torch.cluster.messaging import LoopbackNetwork
 from zeebe_tpu_torch.gateway import ClusterRuntime
 from zeebe_tpu_torch.parallel import mesh_runner
+from zeebe_tpu_torch.testing.election_sim import failover_ms
 
 #: the file's two tests of the partition distribution (no cluster)
 PURE = flows("test_broker_cluster", only=lambda src: "cluster" not in src.split("\n")[0]
@@ -136,34 +137,6 @@ def test_auto_mesh_shards_over_two_or_more_cards(cards, shards, monkeypatch):
     assert B.Broker._mesh_runner(cpu) is None
 
 
-def failover_ms(tmp_path, seed: int) -> int:
-    """Milliseconds from isolating an elected leader of a 3-node Raft group
-    (a controlled clock, 10 ms ticks) to a new leader among the other two."""
-    import random
-
-    from test_torch_ref_raft import Cluster
-    from zeebe_tpu_torch.cluster.raft import RaftRole
-
-    cluster = Cluster(tmp_path / f"seed-{seed}")
-    try:
-        for i, node in enumerate(cluster.nodes.values()):
-            node._rng = random.Random(1000 * seed + i)
-        dead = cluster.elect().member_id
-        cluster.run(1000)
-        cluster.net.isolate(dead)
-        others = [n for m, n in cluster.nodes.items() if m != dead]
-        for waited in range(10, 20_000, 10):
-            cluster.clock.advance(10)
-            for node in others:
-                node.tick()
-            cluster.net.deliver_all()
-            if any(n.role == RaftRole.LEADER for n in others):
-                return waited
-        raise AssertionError("no new leader in 20 s")
-    finally:
-        cluster.close()
-
-
 def test_a_dead_leaders_followers_elect_within_one_election_timeout(tmp_path):
     """A follower whose timer fired grants the other's pre-vote: the first
     election after a leader's death starts when the second follower's timer
@@ -173,3 +146,19 @@ def test_a_dead_leaders_followers_elect_within_one_election_timeout(tmp_path):
     waits = sorted(failover_ms(tmp_path, seed) for seed in range(20))
     assert waits[len(waits) // 2] < ELECTION_TIMEOUT_MS, waits
     assert sum(w < ELECTION_TIMEOUT_MS + 500 for w in waits) >= 18, waits
+
+
+@pytest.mark.parametrize("behind, delivery_ms", [(True, 10), (False, 200)],
+                         ids=["a-follower-one-entry-behind", "messages-200ms-late"])
+def test_a_dead_leaders_followers_elect_without_a_second_timer(tmp_path, behind, delivery_ms):
+    """Under load a follower's log is often an entry behind the other's, and
+    its pre-vote is denied; the member with the longer log then starts its
+    pre-vote at once instead of at its next timer. Where messages are late,
+    two followers can both win a pre-vote and split the vote; the one with
+    the longer log, or the smaller member id, then runs the next election at
+    once. Either way a new leader stands within one election timeout of the
+    last heartbeat, not two (the reference's took up to 5 s)."""
+    from zeebe_tpu_torch.cluster.raft import ELECTION_TIMEOUT_MS
+
+    waits = [failover_ms(tmp_path, seed, behind, delivery_ms) for seed in range(20)]
+    assert max(waits) <= ELECTION_TIMEOUT_MS + 2 * delivery_ms, waits

@@ -36,7 +36,9 @@ PORT = REPO / "zeebe_tpu_torch"
 #: reason it is rewritten whole
 PORT_MEMBERS = {
     "broker/partition.py": {
-        ("ZeebePartition", "__init__"): {"device"},
+        # ``resolve_device`` is imported where the backend's device is
+        # resolved, so that a client or a gateway loads no torch
+        ("ZeebePartition", "__init__"): {"device", "resolve_device"},
         ("ZeebePartition", "_transition"): {"device"},
     },
     "broker/broker.py": {
@@ -51,6 +53,11 @@ PORT_MEMBERS = {
         ("RaftNode", "_start_prevote"):
             "drops the leader when the timer fires, as raft's pre-candidate does: the "
             "reference's kept it and denied every first pre-vote after a leader's death",
+        ("RaftNode", "_on_vote_request"):
+            "the reference's answer; then a member that can win where the requester cannot "
+            "(a pre-vote from a shorter log, a split vote it wins on log and member id) "
+            "sets its election timer to fire at once: the reference's waited for a timer "
+            "that could leave the partition without a leader for another election timeout",
     },
     "gateway/broker_client.py": {
         ("ClusterRuntime", "__init__"): {"device"},
@@ -62,8 +69,8 @@ PORT_MEMBERS = {
 }
 #: imports a partial copy adds to the reference's
 ADDED_IMPORTS = {
-    "broker/partition.py": {"from zeebe_tpu_torch.ops.automaton import resolve_device"},
-    "broker/broker.py": {"import torch"},
+    "broker/partition.py": set(),
+    "broker/broker.py": set(),
     "cluster/raft.py": set(),
     "gateway/broker_client.py": set(),
 }
@@ -79,7 +86,8 @@ def check_copied_runs(path: str) -> None:
     """A partial copy's marked runs are what the copy script writes."""
     text = (PORT / path).read_text()
     runs = copies.PARTIAL_COPIES[path]
-    assert copies.splice_runs(text, (REF / path).read_text(), runs) == text
+    assert copies.splice_runs(text, (REF / path).read_text(), runs,
+                              copies.copy_rule(path)) == text
     for scope, first, last in runs:
         assert copies.BEGIN.format(first, last) in text
 
@@ -119,7 +127,10 @@ def _members(text: str, classes) -> dict:
 
 
 def _texts(path: str) -> tuple[str, str]:
-    return as_copied((REF / path).read_text()), (PORT / path).read_text()
+    ref = as_copied((REF / path).read_text())
+    if path in copies.PORT_PATHS:  # these copies rename the reference's path too
+        ref = ref.replace("zeebe_tpu/", "zeebe_tpu_torch/")
+    return ref, (PORT / path).read_text()
 
 
 def _classes(path: str) -> set:
@@ -150,8 +161,8 @@ def test_every_member_is_copied_or_named(path):
 
 class _Without(ast.NodeTransformer):
     """A member without the names the port adds: the argument and its
-    default, the keyword passed on, the attribute set on ``self`` and the
-    dataclass field."""
+    default, the keyword passed on, the attribute set on ``self``, the
+    dataclass field and the function-local import."""
 
     def __init__(self, names: set) -> None:
         self.names = names
@@ -174,6 +185,11 @@ class _Without(ast.NodeTransformer):
                 and target.value.id == "self" and target.attr in self.names):
             return None
         return self.generic_visit(node)
+
+    def visit_ImportFrom(self, node: ast.ImportFrom):
+        if all((a.asname or a.name) in self.names for a in node.names):
+            return None
+        return node
 
     def visit_AnnAssign(self, node: ast.AnnAssign):
         if isinstance(node.target, ast.Name) and node.target.id in self.names:

@@ -2,8 +2,8 @@
 
 The reference's own tests run on the port, their imports renamed (every
 broker they build on the CPU; ``tests/torch_cluster_flows.py``): all of
-``tests/test_control.py`` but the test of the CLI, which is not ported
-yet (the multi-process worker's ingress coalescing runs since the worker
+``tests/test_control.py``, its CLI top view on the port's command line
+(the multi-process worker's ingress coalescing runs since the worker
 is ported); all of
 ``tests/test_device_link.py``; and the four router-bound flows of
 ``tests/test_device_faults.py``. Then the port's own: a group the router
@@ -33,13 +33,11 @@ from zeebe_tpu_torch.utils import backend_probe as probe
 from zeebe_tpu_torch.utils import device_link
 from zeebe_tpu_torch.utils.device_link import BackendRouter
 
-#: the CLI's top view (``zeebe_tpu.cli``) comes with a later slice
-NOT_PORTED = ("test_top_renders_control_section",)
 ROUTER_FLOWS = ("test_canary_pins_accelerator_past_quarantine_host_bias",
                 "test_accel_device_none_when_routing_disabled",
                 "test_routing_controller_biases_on_device_state",
                 "test_routing_signals_stale_without_compile_telemetry")
-CASES = (reference_tests("test_control", skip=NOT_PORTED)
+CASES = (reference_tests("test_control")
          + reference_tests("test_device_link")
          + reference_tests("test_device_faults", only=lambda n: n in ROUTER_FLOWS))
 
@@ -55,7 +53,8 @@ def test_cases_cover_the_reference_files():
         by_file[case[0]] = by_file.get(case[0], 0) + 1
     assert by_file["test_device_link"] == 6 and by_file["test_device_faults"] == 4
     assert by_file["test_control"] >= 40
-    assert not [c for c in CASES if c[1] in NOT_PORTED or c[2] in NOT_PORTED]
+    # the CLI's top view runs on the port's command line too
+    assert [c for c in CASES if c[2] == "test_top_renders_control_section"]
 
 
 # ---------------------------------------------------------------------------

@@ -65,6 +65,12 @@ REWRITTEN = {
     "testing/serving.py": "partial copy: the workers' --device (test_torch_gates)",
     "testing/fleetday.py": "partial copy: the workers' --device (test_torch_gates)",
     "testing/autotune.py": "partial copy: the workers' --device (test_torch_gates)",
+    "cli.py": "partial copy: metrics-doc's --device, the port's documents (test_torch_zlint)",
+    "analysis/__init__.py": "partial copy: the port's docstring (test_torch_zlint)",
+    "analysis/framework.py": "partial copy: the port's tree and baseline (test_torch_zlint)",
+    "analysis/knobs.py": "partial copy: the kernel backend's knob note (test_torch_zlint)",
+    "analysis/rules.py": "partial copy: rules 2 and 8 on torch (test_torch_zlint)",
+    "analysis/eligibility_notes.py": "a copy with the port's paths (test_torch_zlint)",
 }
 
 

@@ -370,8 +370,8 @@ def test_scale_soak_has_a_command_line():
 
 def test_rss_split_on_the_cpu():
     """The split leaves the card's steps out on the CPU and counts the
-    engine's step after ``import torch``; the engine ran its groups through
-    the kernel backend."""
+    engine's step after ``import torch``, with the resident memory by kind
+    at each step; the engine ran its groups through the kernel backend."""
     from zeebe_tpu_torch.testing.rss_split import rss_split
 
     split = rss_split("cpu", instances=4)
@@ -379,6 +379,13 @@ def test_rss_split_on_the_cpu():
     assert list(split["growthMiB"]) == ["import torch", "engine, 4 instances"]
     assert all(mib > 0 for mib in split["rssMiB"].values())
     assert split["device"] == "cpu" and split["kernelRecords"] > 0
+    # by kind at each step (smaps' mappings), the three kinds summing to the
+    # step's resident MiB (VmRSS)
+    assert list(split["kindMiB"]) == list(split["rssMiB"])
+    for step, kinds in split["kindMiB"].items():
+        assert set(kinds) == {"RssAnon", "RssFile", "RssShmem"}
+        assert all(mib >= 0 for mib in kinds.values())
+        assert abs(sum(kinds.values()) - split["rssMiB"][step]) < 1.0
 
 
 # ---------------------------------------------------------------------------
@@ -479,16 +486,15 @@ def _defined(text: str) -> set:
     return out
 
 
-@pytest.mark.parametrize("name", sorted(copies.NOT_PORTED))
+@pytest.mark.parametrize("name", copies.REFERENCE_TESTS)
 def test_every_test_left_out_names_its_reason(name):
-    """Each entry is a test or a class of the reference's file, left out of
-    the copy with a reason; the ones that wait for the CLI or the analysis
-    package name ROADMAP A4."""
-    assert name in copies.REFERENCE_TESTS
+    """Each entry of a copied reference file is a test or a class of it,
+    left out of the copy with a reason; none waits for a module of the
+    port any more (the CLI and the analysis package are ported)."""
+    assert set(copies.NOT_PORTED) <= set(copies.REFERENCE_TESTS)
     defined = _defined((TESTS / name).read_text())
     copy = _defined(copies.reference_test_copy(name).read_text())
-    for left_out, reason in copies.NOT_PORTED[name].items():
+    for left_out, reason in copies.NOT_PORTED.get(name, {}).items():
         assert left_out in defined and left_out not in copy
         assert isinstance(reason, str) and len(reason) > 20
-        if "`cli`" in reason or "`analysis`" in reason:
-            assert reason.endswith("(ROADMAP A4)")
+        assert "`cli`" not in reason and "`analysis`" not in reason

@@ -449,3 +449,42 @@ class TestBrokerAuditorInCluster:
             c.close()
 
 
+class TestTopAuditSection:
+    def test_render_top_shows_audit_rows(self):
+        from zeebe_tpu_torch.cli import _render_top
+
+        status = {
+            "clusterSize": 1,
+            "partitionsCount": 1,
+            "health": "healthy",
+            "brokers": [{
+                "nodeId": "broker-0",
+                "health": "healthy",
+                "partitions": {},
+                "audit": {
+                    "enabled": True,
+                    "violations": 2,
+                    "burn": {"fast": 3.25, "slow": 0.5, "state": "ok"},
+                    "leaks": {
+                        "rss_bytes": {"state": "leak", "slopePerSec": 9.0},
+                        "fd_count": {"state": "quiet", "slopePerSec": 0.0},
+                    },
+                    "leakVerdict": "leak",
+                },
+            }],
+        }
+        frame = _render_top(status)
+        assert "AUDIT" in frame
+        audit_line = next(
+            line for line in frame.splitlines()
+            if line.startswith("broker-0") and "leak" in line)
+        assert "3.25" in audit_line
+        assert "rss_bytes:leak" in audit_line
+        # quiet series stay out of the TRENDING column
+        assert "fd_count" not in audit_line
+
+    def test_render_top_no_audit_block_no_section(self):
+        from zeebe_tpu_torch.cli import _render_top
+
+        frame = _render_top({"brokers": [{"nodeId": "b0", "partitions": {}}]})
+        assert "AUDIT" not in frame

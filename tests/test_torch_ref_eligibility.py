@@ -68,6 +68,24 @@ class TestReasonCatalog:
                 == "head-not-admittable")
         assert canonical_reason("made-up-reason") is None
 
+    def test_every_reason_has_a_note_and_no_stale_notes(self):
+        from zeebe_tpu_torch.analysis.eligibility_notes import (
+            stale_reason_notes,
+            undocumented_reasons,
+        )
+
+        assert undocumented_reasons() == []
+        assert stale_reason_notes() == []
+
+    def test_committed_doc_matches_generated(self):
+        """Tree gate mirroring CI's `cli eligibility-doc --check`."""
+        from zeebe_tpu_torch.analysis.eligibility_notes import render_eligibility_doc
+
+        committed = (REPO / "zeebe_tpu_torch" / "docs" / "eligibility.md").read_text()
+        assert committed == render_eligibility_doc(), (
+            "docs/eligibility.md drifted — regenerate with "
+            "`python -m zeebe_tpu_torch.cli eligibility-doc`")
+
     def test_no_unregistered_reason_literals_in_source(self):
         """Satellite: every reason string the two accounting seams note
         must resolve against the catalog — a stale or unregistered literal
@@ -487,3 +505,87 @@ class TestBoundedFlightDumps:
 # CLI surfaces
 
 
+class TestEligibilityCli:
+    def test_file_mode_json(self, tmp_path, capsys):
+        from zeebe_tpu_torch import cli
+
+        rc = cli.main(["eligibility",
+                       str(FIXTURES / "multi_instance.bpmn")])
+        assert rc == 0
+        payload = json.loads(capsys.readouterr().out)
+        (report,) = payload["definitions"]
+        assert report["bpmnProcessId"] == "elig_mi"
+        assert host_reasons_of(report) == {"each": "multi-instance"}
+
+    def test_file_mode_output_artifact(self, tmp_path, capsys):
+        from zeebe_tpu_torch import cli
+
+        out = tmp_path / "report.json"
+        rc = cli.main(["eligibility", str(FIXTURES / "eligible.bpmn"),
+                       "-o", str(out)])
+        assert rc == 0
+        payload = json.loads(out.read_text())
+        assert payload["definitions"][0]["eligible"] is True
+
+    def test_deployed_mode_over_harness_journal(self, tmp_path, capsys):
+        from zeebe_tpu_torch import cli
+
+        h = EngineHarness(directory=tmp_path, use_kernel_backend=True, device="cpu")
+        try:
+            h.deploy(eligible_def("cli_dep_ok"),
+                     host_forced_def("cli_dep_host"))
+            h.pump()
+        finally:
+            h.close()
+        rc = cli.main(["eligibility", "--deployed",
+                       "--data-dir", str(tmp_path)])
+        assert rc == 0
+        payload = json.loads(capsys.readouterr().out)
+        by_id = {r["bpmnProcessId"]: r for r in payload["definitions"]}
+        assert by_id["cli_dep_ok"]["eligible"] is True
+        assert by_id["cli_dep_host"]["eligible"] is False
+        assert by_id["cli_dep_host"]["definitionReasons"] == ["no-none-start"]
+
+    def test_eligibility_doc_check_green(self, capsys):
+        from zeebe_tpu_torch import cli
+
+        assert cli.main(["eligibility-doc", "--check"]) == 0
+
+    def test_top_renders_kernel_coverage_section(self):
+        from zeebe_tpu_torch.cli import _render_top
+
+        frame = _render_top({
+            "clusterSize": 1, "partitionsCount": 1, "health": "HEALTHY",
+            "topology": {"version": 1},
+            "brokers": [{
+                "nodeId": "broker-0", "health": "HEALTHY",
+                "partitions": {"1": {
+                    "role": "leader", "term": 1,
+                    "kernelCoverage": {
+                        "kernelRecords": 900, "hostRecords": 100,
+                        "coverageRatio": 0.9,
+                        "dominantHostReason":
+                            "head-sequential:DEPLOYMENT.CREATE"},
+                }},
+            }],
+        })
+        assert "KERNEL" in frame
+        assert "90.0%" in frame
+        assert "head-sequential:DEPLOYMENT.CREATE" in frame
+
+    def test_health_carries_kernel_coverage(self):
+        """registry → accounting → partition /health block end-to-end
+        (cluster-status rows share the same accounting object)."""
+        h = EngineHarness(use_kernel_backend=True, device="cpu")
+        try:
+            h.deploy(eligible_def("health_cov"))
+            for _ in range(3):
+                h.create_instance("health_cov", {})
+            h.pump()
+            snap = h.kernel_backend.accounting.snapshot()
+            assert snap["kernelRecords"] >= 3
+            assert 0.0 <= snap["coverageRatio"] <= 1.0
+            assert "health_cov" in snap["perDefinition"]
+
+        finally:
+            h.close()

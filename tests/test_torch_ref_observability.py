@@ -388,6 +388,62 @@ def _flatten(node: dict) -> list[dict]:
 # CLI `trace` (offline, journal alone)
 
 
+class TestCliTrace:
+    def test_trace_command_reconstructs_chain_offline(self, tmp_path, capsys):
+        from zeebe_tpu_torch import cli
+
+        h = EngineHarness(directory=tmp_path, device="cpu")
+        try:
+            h.deploy(one_task())
+            key = h.create_instance("p", request_id=9)
+            jobs = h.activate_jobs("w")
+            h.complete_job(jobs[0]["key"])
+            assert h.is_instance_done(key)
+        finally:
+            h.close()  # journal closed: the CLI opens it like a fresh process
+
+        rc = cli.main(["trace", str(key),
+                       "--journal-dir", str(tmp_path / "log")])
+        assert rc == 0
+        lineage = json.loads(capsys.readouterr().out)
+        assert lineage["processInstanceKey"] == key
+        roots = lineage["roots"]
+        create_root = next(r for r in roots
+                           if r["valueType"] == "PROCESS_INSTANCE_CREATION")
+        assert create_root["gatewayRequestId"] == 9
+        kinds = {(n["valueType"], n["intent"])
+                 for r in roots for n in _flatten(r)}
+        assert ("PROCESS_INSTANCE", "ELEMENT_COMPLETED") in kinds
+        assert ("JOB", "CREATED") in kinds
+
+    def test_trace_data_dir_fallback_and_pretty(self, tmp_path, capsys):
+        from zeebe_tpu_torch import cli
+
+        h = EngineHarness(directory=tmp_path, device="cpu")
+        try:
+            h.deploy(one_task())
+            key = h.create_instance("p", request_id=3)
+        finally:
+            h.close()
+        rc = cli.main(["trace", str(key), "--data-dir", str(tmp_path),
+                       "--pretty"])
+        assert rc == 0
+        out = capsys.readouterr().out
+        assert "gateway request 3" in out
+
+    def test_trace_unknown_key_fails_cleanly(self, tmp_path, capsys):
+        from zeebe_tpu_torch import cli
+
+        h = EngineHarness(directory=tmp_path, device="cpu")
+        try:
+            h.deploy(one_task())
+        finally:
+            h.close()
+        rc = cli.main(["trace", "999999",
+                       "--journal-dir", str(tmp_path / "log")])
+        assert rc == 1
+
+
 # ---------------------------------------------------------------------------
 # exporter lag gauge (satellite) + /traces endpoint
 

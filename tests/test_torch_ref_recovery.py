@@ -629,6 +629,60 @@ class TestTornSnapshotRecovery:
 # Offline inspector: cli snapshots
 
 
+class TestCliSnapshots:
+    def test_lists_chains_and_replay_debt(self, chain_store, tmp_path,
+                                          capsys):
+        from zeebe_tpu_torch.cli import main
+
+        store, _db, (base, d1, d2) = chain_store
+        rc = main(["snapshots", str(store.root)])
+        assert rc == 0
+        report = json.loads(capsys.readouterr().out)
+        [part] = report["partitions"]
+        assert part["recoveryAnchor"]["id"] == str(d2.id)
+        assert part["recoveryAnchor"]["chainLength"] == 3
+        kinds = [s["kind"] for s in part["snapshots"]]
+        assert kinds == ["full", "delta", "delta"]
+        rc = main(["snapshots", str(store.root), "--pretty"])
+        out = capsys.readouterr().out
+        assert rc == 0
+        assert str(d2.id) in out and "recovery anchor" in out
+
+    def test_broker_data_dir_layout_with_journal_debt(self, tmp_path,
+                                                      capsys):
+        from zeebe_tpu_torch.cli import main
+
+        cluster = InProcessCluster(
+            broker_count=1, partition_count=1, replication_factor=1,
+            directory=tmp_path / "c", snapshot_period_ms=1000, device="cpu")
+        try:
+            cluster.await_leaders()
+            _deploy(cluster)
+            _load(cluster, 20)
+            cluster.run(1100)
+            leader = cluster.leader(1)
+            assert leader.snapshot_store.latest_valid_chain() is not None
+            _load(cluster, 10)  # debt past the snapshot
+            leader.stream_journal.flush()
+        finally:
+            cluster.close()
+        rc = main(["snapshots", str(tmp_path / "c" / "broker-0")])
+        assert rc == 0
+        report = json.loads(capsys.readouterr().out)
+        [part] = report["partitions"]
+        assert part["partition"] == "partition-1"
+        assert part["recoveryAnchor"] is not None
+        assert part["journalEndPosition"] > 0
+        assert part["replayDebtRecords"] > 0
+        assert part["projectedReplayMs"] >= 0
+
+    def test_rejects_missing_dir(self, tmp_path, capsys):
+        from zeebe_tpu_torch.cli import main
+
+        assert main(["snapshots", str(tmp_path / "nope")]) == 2
+        assert main(["snapshots", str(tmp_path)]) == 2
+
+
 # ---------------------------------------------------------------------------
 # The soak gate, short mode (slow-marked: the CI soak job runs the full
 # short mode via bench.py --soak --quick)

@@ -623,8 +623,151 @@ class TestManagementEndpoints:
 # zbctl top
 
 
+class TestTopView:
+    STATUS = {
+        "clusterSize": 2, "partitionsCount": 2, "health": "DEGRADED",
+        "alertsFiring": 1, "appendPerSec": 120.5, "processedPerSec": 118.0,
+        "topology": {"version": 7, "changeInProgress": True},
+        "brokers": [
+            {"nodeId": "broker-0", "health": "HEALTHY",
+             "partitions": {"1": {"role": "leader"},
+                            "2": {"role": "follower"}},
+             "rates": {"appendPerSec": 60.5, "processedPerSec": 59.0,
+                       "exportLagRecords": 12},
+             "alertsFiring": 0},
+            {"nodeId": "broker-1", "health": "DEGRADED",
+             "partitions": {"1": {"role": "follower"},
+                            "2": {"role": "leader"}},
+             "rates": {"appendPerSec": 60.0, "processedPerSec": 59.0},
+             "alertsFiring": 1,
+             "alerts": [{"rule": "exporter_lag", "severity": "warning",
+                         "labels": '{exporter="es"}', "value": 2300.0,
+                         "expr": "lag > 1000 for 5000ms"}]},
+        ],
+    }
+
+    def test_render_top_frame(self):
+        from zeebe_tpu_torch.cli import _render_top
+
+        frame = _render_top(self.STATUS)
+        assert "2 broker(s)" in frame
+        assert "health DEGRADED" in frame
+        assert "1 alert(s) firing" in frame
+        assert "change in progress" in frame
+        assert "1:L 2:F" in frame and "1:F 2:L" in frame
+        assert "exporter_lag" in frame and "2300.0" in frame
+
+    def test_render_top_empty_status(self):
+        from zeebe_tpu_torch.cli import _render_top
+
+        frame = _render_top({})  # must not crash on a degenerate payload
+        assert "0 broker(s)" in frame
+
+    def test_render_top_admission_section(self):
+        from zeebe_tpu_torch.cli import _render_top
+
+        status = dict(self.STATUS)
+        status["admission"] = {
+            "enabled": True, "shedLevel": 2, "draining": True,
+            "observedP99Ms": 1834.2, "shedP99TargetMs": 1000.0,
+            "inflight": 37, "maxInflight": 256,
+            "tenants": {
+                "t-hot": {"admitted": 206, "shed": 520,
+                          "shedByReason": {"tenant-quota": 520},
+                          "inflight": 30, "quotaRate": 8.0, "weight": 1.0},
+                "t-well": {"admitted": 400, "shed": 0, "shedByReason": {},
+                           "inflight": 7, "quotaRate": None, "weight": 2.0},
+            },
+        }
+        frame = _render_top(status)
+        assert "ADMISSION" in frame and "shed level 2" in frame
+        assert "DRAINING" in frame
+        assert "t-hot" in frame and "520" in frame
+        # unmetered tenant renders a dash, not None
+        well_line = next(l for l in frame.splitlines() if "t-well" in l)
+        assert " - " in well_line or well_line.rstrip().split()[-2] == "-"
+
+    def test_top_once_against_live_server(self, management, capsys):
+        from zeebe_tpu_torch.cli import main as cli_main
+
+        server, _cluster = management
+        rc = cli_main(["top", "--once",
+                       "--management", f"http://127.0.0.1:{server.port}"])
+        assert rc == 0
+        out = capsys.readouterr().out
+        assert "zeebe-tpu cluster" in out and "broker-0" in out
+
+    def test_top_unreachable_server_exits_2(self, capsys):
+        from zeebe_tpu_torch.cli import main as cli_main
+
+        rc = cli_main(["top", "--once", "--management",
+                       "http://127.0.0.1:1"])  # port 1: nothing listens
+        assert rc == 2
+
+    def test_top_non_json_response_exits_2(self, capsys):
+        """A proxy error page (200 + HTML) must not become a traceback."""
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+
+        from zeebe_tpu_torch.cli import main as cli_main
+
+        class HtmlHandler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def do_GET(self):
+                body = b"<html>proxy error</html>"
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        server = HTTPServer(("127.0.0.1", 0), HtmlHandler)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            rc = cli_main(["top", "--once", "--management",
+                           f"http://127.0.0.1:{server.server_address[1]}"])
+        finally:
+            server.shutdown()
+        assert rc == 2
+        assert "cannot reach" in capsys.readouterr().err
+
+
 # ---------------------------------------------------------------------------
 # metrics-doc
+
+
+class TestMetricsDoc:
+    def test_renderer_covers_registered_families(self):
+        from zeebe_tpu_torch.cli import _render_metrics_doc
+
+        install_process_metrics()
+        doc = _render_metrics_doc()
+        assert doc.startswith("# Metrics reference")
+        assert "| name | type | labels | help |" in doc
+        assert "`process_cpu_seconds_total` | counter" in doc
+        assert "`zeebe_alerts_firing` | gauge" in doc
+        # sorted by family name (the row-string order differs where one
+        # name prefixes another: '`' sorts after '_') and one row per family
+        names = [line.split("`")[1] for line in doc.splitlines()
+                 if line.startswith("| `")]
+        assert names == sorted(names)
+        assert len(names) == len(set(names))
+
+    @pytest.mark.slow
+    def test_committed_doc_matches_generator(self, tmp_path):
+        """The full drift check (same command CI runs) in a fresh process —
+        slow-marked: boots a broker scenario in a subprocess."""
+        import os
+        import subprocess
+        import sys
+
+        out = subprocess.run(
+            [sys.executable, "-m", "zeebe_tpu_torch.cli", "metrics-doc", "--check", "--device", "cpu"],
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            env={**os.environ, "JAX_PLATFORMS": "cpu"})
+        assert out.returncode == 0, out.stdout + out.stderr
 
 
 # ---------------------------------------------------------------------------

@@ -70,14 +70,16 @@ def recording(side: str, kernel_backend: bool = True, capture: bool = True,
     on either side, runs without its metrics sampler (and so without the
     control plane, which reads it) and its stack profiler: both sample the
     process-wide registry and threads, the bulk of a long run's CPU here.
-    On the reference, Raft takes the port's one difference for the run: a
-    member whose election timer fires drops its leader before its pre-vote
-    (``zeebe_tpu_torch/cluster/raft.py``), so both sides elect alike after
-    a leader's death."""
+    On the reference, Raft takes the port's differences for the run: a
+    member whose election timer fires drops its leader before its pre-vote,
+    and a member that denies a vote it could win itself brings its timer
+    forward (``zeebe_tpu_torch/cluster/raft.py``), so both sides elect alike
+    after a leader's death."""
     broker_mod = importlib.import_module(f"{side}.broker.broker")
     raft_mod = importlib.import_module(f"{side}.cluster.raft")
     made: list = []
     start_prevote = raft_mod.RaftNode._start_prevote
+    on_vote_request = raft_mod.RaftNode._on_vote_request
 
     def prevote_dropping_the_leader(self) -> None:
         # the port's _start_prevote: the leader is dropped where the
@@ -86,6 +88,23 @@ def recording(side: str, kernel_backend: bool = True, capture: bool = True,
                 and self.role != raft_mod.RaftRole.CANDIDATE):
             self.leader_id = None
         start_prevote(self)
+
+    def vote_request_bringing_the_timer_forward(self, sender: str, req: dict) -> None:
+        # the port's _on_vote_request: the reference's answer, then the
+        # timer of a member that can win where the requester cannot
+        on_vote_request(self, sender, req)
+        if sender not in self.members or not self._election_safe():
+            return
+        ours = (self._last_log_term(), self._last_log_index())
+        theirs = (req["lastLogTerm"], req["lastLogIndex"])
+        if req.get("prevote"):
+            if (self.role == raft_mod.RaftRole.FOLLOWER and self.leader_id is None
+                    and theirs < ours):
+                self._election_deadline_ms = self.clock_millis()
+        elif (self.role == raft_mod.RaftRole.CANDIDATE and req["term"] == self.current_term
+                and self.voted_for == self.member_id
+                and (ours > theirs or (ours == theirs and self.member_id < req["candidate"]))):
+            self._election_deadline_ms = self.clock_millis()
 
     class Recording(broker_mod.Broker):
         def __init__(self, cfg, *args, **kwargs) -> None:
@@ -110,11 +129,13 @@ def recording(side: str, kernel_backend: bool = True, capture: bool = True,
     broker_mod.Broker = Recording
     if side == REF:
         raft_mod.RaftNode._start_prevote = prevote_dropping_the_leader
+        raft_mod.RaftNode._on_vote_request = vote_request_bringing_the_timer_forward
     try:
         yield made
     finally:
         broker_mod.Broker = saved
         raft_mod.RaftNode._start_prevote = start_prevote
+        raft_mod.RaftNode._on_vote_request = on_vote_request
 
 
 def _records(made: list) -> list:

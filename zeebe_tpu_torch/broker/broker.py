@@ -23,8 +23,6 @@ import tempfile
 from pathlib import Path
 from typing import Any, Callable
 
-import torch
-
 from zeebe_tpu_torch.broker.partition import ZeebePartition
 from zeebe_tpu_torch.cluster.membership import MembershipService
 from zeebe_tpu_torch.cluster.messaging import LoopbackNetwork, MessagingService
@@ -126,6 +124,8 @@ def _auto_device_count(device=None) -> int:
     on it. Probe failure = 0 (no mesh). The count only sizes the mesh: the
     port's mesh puts every shard block on one card, so on a host of two
     cards the second stays idle until shards spread over cards."""
+    import torch
+
     global _AUTO_DEVICE_COUNT
     if torch.device("cuda" if device is None else device).type == "cpu":
         return 1

@@ -29,7 +29,6 @@ from zeebe_tpu_torch.journal.journal import CorruptedJournalError
 from zeebe_tpu_torch.state.tiering import ColdCorruptionError
 from zeebe_tpu_torch.logstreams import LogAppendEntry, LogStream, patch_prepatched_batch
 from zeebe_tpu_torch.observability.tracer import get_tracer as _get_tracer
-from zeebe_tpu_torch.ops.automaton import resolve_device
 from zeebe_tpu_torch.protocol import Record
 from zeebe_tpu_torch.protocol.msgpack import packb, unpackb
 from zeebe_tpu_torch.state import ZbDb
@@ -202,7 +201,11 @@ class ZeebePartition:
         self.kernel_backend_enabled = kernel_backend_enabled
         self.mesh_runner = mesh_runner
         # the kernel backend's device: CUDA unless the caller asks for the
-        # CPU (the plain version); resolved before anything is opened
+        # CPU (the plain version); resolved before anything is opened, and
+        # imported here so that a process that serves no kernel (a client,
+        # a gateway) loads no torch
+        from zeebe_tpu_torch.ops.automaton import resolve_device
+
         self.device = resolve_device(device) if kernel_backend_enabled else None
         self.durable_state = durable_state
         # state tiering: cold parked-instance store config

@@ -647,7 +647,7 @@ class RaftNode:
                 "prevote": True,
             })
 
-    # copied from the reference: _start_election .. committed_entries
+    # copied from the reference: _start_election .. _start_election
     def _start_election(self) -> None:
         self._prevotes = set()  # stale grants must not re-trigger elections
         self._m_elections.inc()
@@ -668,8 +668,12 @@ class RaftNode:
                 "lastLogTerm": self._last_log_term(),
                 "prevote": False,
             })
+    # end of the copy
 
     def _on_vote_request(self, sender: str, req: dict) -> None:
+        """The reference's answer to a vote or a pre-vote; then, where the
+        requester cannot win the election and this member can, this member's
+        election timer is set to fire at its next tick."""
         if sender not in self.members:
             # an ex-member removed by reconfiguration (possibly before it
             # learned of the removal) must not be able to bump our terms
@@ -710,6 +714,13 @@ class RaftNode:
                 "term": self.current_term, "granted": granted, "prevote": True,
                 "voter": self.member_id,
             })
+            if (self.role == RaftRole.FOLLOWER and self.leader_id is None
+                    and self._election_safe() and not standard_up_to_date):
+                # this member lost its leader too, and the requester's log
+                # is behind its own: the requester cannot win, and a member
+                # that waited for its next timer left the partition without
+                # a leader for up to another election timeout
+                self._election_deadline_ms = self.clock_millis()
             return
         if term > self.current_term:
             self._set_term(term)
@@ -727,7 +738,19 @@ class RaftNode:
             "term": self.current_term, "granted": granted, "prevote": False,
             "voter": self.member_id,
         })
+        if (self.role == RaftRole.CANDIDATE and term == self.current_term
+                and self.voted_for == self.member_id and self._election_safe()):
+            # a split vote: two candidates of one term, each voted for
+            # itself. The one with the longer log (on a tie the smaller
+            # member id) runs its next election at once, and its request
+            # reaches the other before that one's timer fires, where both
+            # waiting for new timers could split the next term too
+            ours = (self._last_log_term(), self._last_log_index())
+            theirs = (req["lastLogTerm"], req["lastLogIndex"])
+            if ours > theirs or (ours == theirs and self.member_id < req["candidate"]):
+                self._election_deadline_ms = self.clock_millis()
 
+    # copied from the reference: _on_vote_response .. committed_entries
     def _on_vote_response(self, sender: str, resp: dict) -> None:
         if resp.get("prevote"):
             # only followers collect pre-votes; once the election started the

@@ -35,6 +35,13 @@ client with its credentials and job worker.
 partial copies: the external-code loaders, the TCP messaging fault
 injector and the multi-process package's ``__init__``.
 
+``ANALYSIS_STACK`` is what zlint, the AST invariant linter, copies whole:
+the eligibility reason notes. It and the files of ``PORT_PATHS`` (the
+command line and the rest of ``analysis/``, partial copies) name the
+reference's files by path (``zeebe_tpu/...``), which the lint, the knob
+scan and the generated documents read: their copies also rename that
+path, so that they read the port's tree (``as_copied_with_paths``).
+
 ``REFERENCE_TESTS`` are test files of the reference run on the port: each is
 written to ``tests/test_torch_ref_<name>`` as the same rule copies it, less
 the definitions ``NOT_PORTED`` names, with the calls ``RENAMED_CALLS`` names
@@ -46,10 +53,15 @@ a child, and the copy's file name where the file names itself.
 
 The files of ``PARTIAL_COPIES`` are part copy, part rewrite:
 ``engine/kernel_backend.py`` (its device members), the partition, the
-broker, Raft (a pre-vote's dropped leader), the gateway's cluster runtimes, the chaos harness and the worker
-supervisor (the kernel backend's ``device`` they pass on), the worker's
-and the standalone's entry points (``--device`` and the card guard), and
-the multi-process gateway runtime (its leader routing by term). Their
+broker, Raft (a pre-vote's dropped leader, and the election timer of a
+member that can win where a vote's requester cannot), the gateway's
+cluster runtimes, the chaos harness and the worker supervisor (the
+kernel backend's ``device`` they pass on), the worker's
+and the standalone's entry points (``--device`` and the card guard),
+the multi-process gateway runtime (its leader routing by term), the
+command line (``metrics-doc``'s ``--device``, the port's documents) and
+zlint (the port's files and baseline, and the port's device queries and
+kernel-result primitives in rules 2 and 8). Their
 copied parts are runs of consecutive reference definitions (module level,
 or members of one class), each written between
 a ``# copied from the reference: <first> .. <last>`` line and an
@@ -122,6 +134,12 @@ STANDALONE_STACK = (
 
 GATES_STACK = ("testing/sanitizer.py",)
 
+ANALYSIS_STACK = ("analysis/eligibility_notes.py",)
+
+#: copies that also rename the reference's path ``zeebe_tpu/``
+PORT_PATHS = ANALYSIS_STACK + ("cli.py", "analysis/__init__.py", "analysis/framework.py",
+                               "analysis/knobs.py", "analysis/rules.py")
+
 REFERENCE_TESTS = (
     "test_gateway_client.py", "test_jobstream.py", "test_oauth.py", "test_multitenancy.py",
     "test_admission.py", "test_metrics_parity.py", "test_logging.py",
@@ -130,11 +148,9 @@ REFERENCE_TESTS = (
     "test_topology.py", "test_raft.py", "test_auditor.py", "test_critical_path.py",
     "test_timeseries.py", "test_eligibility.py", "test_observability.py",
     "test_engine_links.py", "test_update.py", "test_sanitizer.py", "test_serving.py",
-    "test_consistency.py", "test_automaton.py",
+    "test_consistency.py", "test_automaton.py", "test_cli.py",
 )
 
-_NEEDS_CLI = "needs `cli` (ROADMAP A4)"
-_NEEDS_ANALYSIS = "needs `analysis` (ROADMAP A4)"
 #: per reference test file, the definitions its copy leaves out, and why
 NOT_PORTED = {
     "test_multiproc.py": {
@@ -144,27 +160,12 @@ NOT_PORTED = {
             "the port never falls to the CPU unasked: a wedged probe stops the entry point "
             "(tests/test_torch_standalone.py)",
     },
-    "test_recovery.py": dict.fromkeys(
-        ("TestCliSnapshots",), _NEEDS_CLI),
-    "test_auditor.py": dict.fromkeys(
-        ("TestTopAuditSection",),
-        _NEEDS_CLI),
-    "test_timeseries.py": dict.fromkeys(
-        ("TestTopView", "TestMetricsDoc"),
-        _NEEDS_CLI),
-    "test_eligibility.py": {
-        **dict.fromkeys(("test_every_reason_has_a_note_and_no_stale_notes",
-                         "test_committed_doc_matches_generated"), _NEEDS_ANALYSIS),
-        "TestEligibilityCli": _NEEDS_CLI,
-    },
     "test_automaton.py": {
         "test_mesh_rejects_oversubscription":
             "the port's mesh holds every shard block on one card, so a shard count is not a "
             "device count; it waits for shards on several cards (ROADMAP A6); the refusal of a "
             "card that does not exist is tests/test_torch_mesh.py's",
     },
-    "test_observability.py": dict.fromkeys(
-        ("TestCliTrace",), _NEEDS_CLI),
 }
 
 #: the calls a copied test makes that build a kernel backend (or start a
@@ -179,6 +180,12 @@ CPU_CALLS = ("ClusterRuntime", "InProcessCluster", "ChaosHarness", "BrokerCfg",
 RENAMED_CALLS = {".from_tables(": ".from_numpy("}
 #: the module a copied test's command line starts, which is given ``--device cpu``
 STANDALONE_MODULE = "zeebe_tpu_torch.standalone"
+#: the command line's one command that builds a kernel backend: a copied
+#: test's command line running it is given ``--device cpu`` too
+CLI_MODULE, CLI_DEVICE_COMMAND = "zeebe_tpu_torch.cli", "metrics-doc"
+#: a path of the reference's own documents in a copied test; the copy
+#: reads the port's
+PORT_DOCS = {'REPO / "docs" / ': 'REPO / "zeebe_tpu_torch" / "docs" / '}
 # a child's PYTHONPATH written as an absolute directory of the reference's
 # checkout; the copy gives the child its own checkout's
 _ABSOLUTE_PYTHONPATH = re.compile(r'PYTHONPATH="/[\w/.-]+"')
@@ -228,7 +235,8 @@ PARTIAL_COPIES = {
     "cluster/raft.py": (
         (None, "HEARTBEAT_INTERVAL_MS", "RaftRole"),
         ("RaftNode", "__init__", "_last_resort_due"),
-        ("RaftNode", "_start_election", "committed_entries"),
+        ("RaftNode", "_start_election", "_start_election"),
+        ("RaftNode", "_on_vote_response", "committed_entries"),
     ),
     "gateway/broker_client.py": (
         (None, "logger", "GatewayRuntimeBase"),
@@ -297,6 +305,27 @@ PARTIAL_COPIES = {
         (None, "FULL_CONFIG", "evaluate_arms"),
         (None, "merge_rounds", "main"),
     ),
+    "cli.py": (
+        (None, "_out", "_out"),
+        (None, "_trace", "_profile"),
+        (None, "_render_metrics_doc", "_render_metrics_doc"),
+        (None, "_repo_root", "_dispatch"),
+    ),
+    "analysis/__init__.py": (
+        (None, "__all__", "__all__"),
+    ),
+    "analysis/framework.py": (
+        (None, "_SUPPRESS_RE", "format_baseline"),
+    ),
+    "analysis/knobs.py": (
+        (None, "_KNOB_RE", "_KNOB_RE"),
+        (None, "Knob", "undocumented"),
+    ),
+    "analysis/rules.py": (
+        (None, "_import_aliases", "ReplayDeterminismRule"),
+        (None, "_BLOCKING_CALLS", "StorageIoDisciplineRule"),
+        (None, "RULES", "RULES"),
+    ),
 }
 
 BEGIN = "# copied from the reference: {} .. {}"
@@ -320,6 +349,11 @@ def as_copied(text: str) -> str:
     return _TAG.sub("", text)
 
 
+def as_copied_with_paths(text: str) -> str:
+    """``as_copied``, with the reference's path renamed too."""
+    return as_copied(text).replace("zeebe_tpu/", "zeebe_tpu_torch/")
+
+
 def reference_test_copy(name: str) -> Path:
     """Where the copy of the reference's ``tests/<name>`` lives."""
     return TESTS / name.replace("test_", "test_torch_ref_", 1)
@@ -330,12 +364,13 @@ def as_test_copy(text: str, name: str) -> str:
     definitions ``NOT_PORTED`` names, each call ``RENAMED_CALLS`` names
     calling the port's name, each call of ``CPU_CALLS`` given
     ``device="cpu"`` (where it names no device), each command line that
-    starts the standalone given ``--device cpu``, a child's absolute
+    starts the standalone or runs ``metrics-doc`` given ``--device cpu``,
+    the reference's documents the port's, a child's absolute
     ``PYTHONPATH`` its own checkout, the file's own name (as a string) the
     copy's, under a header naming its source."""
     text = as_copied(text).replace(f'"{name}"', f'"{reference_test_copy(name).name}"')
-    for reference_call, port_call in RENAMED_CALLS.items():
-        text = text.replace(reference_call, port_call)
+    for reference_text, port_text in {**RENAMED_CALLS, **PORT_DOCS}.items():
+        text = text.replace(reference_text, port_text)
     text = _ABSOLUTE_PYTHONPATH.sub(_OWN_CHECKOUT, text)
     text = _TESTS_HELPER.sub(
         lambda m: f'import torch_kernel_flows; torch_kernel_flows.port_module("{m.group(1)}"); '
@@ -362,8 +397,8 @@ def as_test_copy(text: str, name: str) -> str:
                 :node.end_col_offset - 1]
             sep = ", " if not before.rstrip().endswith((",", "(")) else ""
             inserts.append((node.end_lineno, node.end_col_offset, f'{sep}device="cpu"'))
-        elif isinstance(node, ast.List) and any(
-                isinstance(e, ast.Constant) and e.value == STANDALONE_MODULE for e in node.elts):
+        elif isinstance(node, ast.List) and _starts_a_device(
+                [e.value for e in node.elts if isinstance(e, ast.Constant)]):
             inserts.append((node.end_lineno, node.end_col_offset, ', "--device", "cpu"'))
     # before each closing bracket, the last first so that the earlier ones
     # keep their offsets
@@ -371,6 +406,12 @@ def as_test_copy(text: str, name: str) -> str:
         row, col = end_line - 1, end_col - 1
         lines[row] = lines[row][:col] + added + lines[row][col:]
     return TEST_HEADER.format(name=name) + "".join(lines)
+
+
+def _starts_a_device(words: list) -> bool:
+    """Whether a command line's constant words start the standalone or run
+    the command line's ``metrics-doc``: both build a kernel backend."""
+    return STANDALONE_MODULE in words or (CLI_MODULE in words and CLI_DEVICE_COMMAND in words)
 
 
 def _called_name(call: ast.Call) -> str | None:
@@ -435,17 +476,22 @@ def reference_run(text: str, scope: str | None, first: str, last: str) -> str:
     return "".join(text.splitlines(keepends=True)[start - 1:end])
 
 
-def splice_runs(port: str, reference: str, runs=KERNEL_BACKEND_RUNS) -> str:
+def splice_runs(port: str, reference: str, runs=KERNEL_BACKEND_RUNS, copy=as_copied) -> str:
     """A partial copy (by default the kernel backend) with each copied run
-    rewritten from the reference text."""
+    rewritten from the reference text by ``copy``."""
     lines = port.splitlines(keepends=True)
     for scope, first, last in runs:
         begin = BEGIN.format(first, last)
         i = next(k for k, line in enumerate(lines) if line.strip() == begin)
         j = next(k for k in range(i + 1, len(lines)) if lines[k].strip() == END)
-        run = as_copied(reference_run(reference, scope, first, last))
+        run = copy(reference_run(reference, scope, first, last))
         lines[i + 1:j] = run.splitlines(keepends=True)
     return "".join(lines)
+
+
+def copy_rule(rel: str):
+    """How the port copies the reference's ``rel``."""
+    return as_copied_with_paths if rel in PORT_PATHS else as_copied
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -454,9 +500,9 @@ def main(argv: list[str] | None = None) -> int:
                         help="list the copies that differ; write nothing")
     args = parser.parse_args(argv)
     stale = []
-    copies = [(PORT / rel, as_copied((REFERENCE / rel).read_text()))
+    copies = [(PORT / rel, copy_rule(rel)((REFERENCE / rel).read_text()))
               for rel in ENGINE_STACK + CLUSTER_STACK + GATEWAY_STACK + STANDALONE_STACK
-              + GATES_STACK]
+              + GATES_STACK + ANALYSIS_STACK]
     copies += [(reference_test_copy(name), as_test_copy((TESTS / name).read_text(), name))
                for name in REFERENCE_TESTS]
     for dst, want in copies:
@@ -469,7 +515,7 @@ def main(argv: list[str] | None = None) -> int:
     for rel, runs in PARTIAL_COPIES.items():
         dst = PORT / rel
         text = dst.read_text()
-        want = splice_runs(text, (REFERENCE / rel).read_text(), runs)
+        want = splice_runs(text, (REFERENCE / rel).read_text(), runs, copy_rule(rel))
         if want != text:
             stale.append(dst.relative_to(REPO).as_posix())
             if not args.check:
