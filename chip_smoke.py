@@ -184,7 +184,19 @@ exit) if any phase fails:
     per restart, the faults observed, the corruption accounting, the
     health cycle, the kills, each worker's start-up, per-tenant latency,
     goodput, the shed p95 and each gate's wall time;
-17. prints the kernels line (JSON), then the card line, then the result line.
+17. the mesh as launch groups (``parallel/mesh.py``): phase 6's 8 shard
+    blocks in 2 and in 8 launch groups on cuda:0 (and one group per card
+    where there are two or more cards); the grouped sharded step (6 steps,
+    the grouped state carried from step to step) and the runner's grouped
+    sharded collect (chunk by chunk with job waves) byte-equal to the
+    one-group launch and to the plain version, the cross-group counter sum
+    (``k_combine_groups``) byte-equal to its plain version and launched;
+    each layout's time per call beside the one-group time; then the graft
+    entry (``zeebe_tpu_torch/graft_entry.py``): ``entry()``'s step
+    byte-equal to its plain version and ``dryrun_multichip(8)`` (8 one-block
+    groups on the one card: the sharded step twice, then the serving path
+    through a ``MeshKernelRunner`` over that mesh);
+18. prints the kernels line (JSON), then the card line, then the result line.
 
 Three paths run the automaton's steps (``ops/kernels.py``): the fused
 chunk, one thread-block cluster per shard and ONE launch per chunk, for
@@ -217,7 +229,8 @@ before each main path runs (phase 4 for step and run_collect, phase 5 for
 run_to_completion, phase 7 for sharded_step and sharded_collect, phase 8's
 ``batch_evaluate`` at the benchmark's geometry for decision, phase 11 for
 run_collect on the serving write path, phases 12, 13 and 14 for
-run_collect and sharded_collect on the cluster) and read right after; comparison
+run_collect and sharded_collect on the cluster, phase 17 for the cross-group
+counter sum) and read right after; comparison
 launches, and phase 10's traced ``run_group``, do not count. Each entry of
 the kernels line names its path and its grid launches per call;
 run_collect's also its launches on the serving write path
@@ -982,7 +995,7 @@ def phase_sharded_vs_plain(rng, dev) -> dict:
         f"{int(ks['transitions'])}, overflow "
         f"{bool(ks['overflow'])})")
     return {"worst": worst, "dt": dt, "config": config, "state": state, "sstate": sstate,
-            "step": step, "collect": collect, "rows": krows}
+            "step": step, "collect": collect, "rows": krows, "tables": tables}
 
 
 def mesh_partitions(rng) -> list:
@@ -3475,6 +3488,142 @@ def phase_gates(card: str, device=None) -> dict:
             "serving": gate_serving(card, device)}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the mesh as launch groups, and the graft entry
+
+
+def group_layouts() -> dict:
+    """Phase 17's layouts of the 8 shard blocks: 2 and 8 groups on cuda:0,
+    and one group per card where there are two or more cards."""
+    first = torch.device("cuda", 0)
+    out = {f"{k} groups on cuda:0": [first] * k for k in (2, 8)}
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        out[f"one group per card ({min(cards, N_SHARDS)})"] = [
+            torch.device("cuda", i) for i in range(min(cards, N_SHARDS))]
+    return out
+
+
+def check_combine_groups(state: dict, groups: int) -> int:
+    """``kernels.combine_groups`` against its plain version on the card at a
+    grouped step's shape ([groups, 4] rows), the rows near the int32 edge
+    so the sum wraps; returns the largest absolute difference."""
+    base = {k: state[k] for k in ("transitions", "jobs_created", "completed")}
+    rows = torch.randint(-2**31, 2**31 - 1, (groups, 4), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(groups)).to(base["completed"].device)
+    rows[:, 3] = (rows[:, 3] > 0).to(torch.int32)
+    return max_abs_err(kernels.combine_groups(rows, base), M.combine_groups_plain(rows, base))
+
+
+def phase_mesh_groups(sharded: dict, dev, card: str) -> dict:
+    """Phase 17: the sharded step (6 steps, the grouped state carried) and
+    the runner's sharded collect (chunk by chunk with job waves, each chunk
+    from the one-group run's state) at phase 6's geometry over every layout
+    of ``group_layouts``, byte-equal to the one-group launch and to the plain
+    version; the cross-group counter sum against its plain version; each
+    layout's time per call beside the one-group time; then the graft entry:
+    ``entry()`` byte-equal to its plain version and ``dryrun_multichip(8)``."""
+    from zeebe_tpu_torch import graft_entry
+
+    t_phase = time.perf_counter()
+    dt, config = sharded["dt"], sharded["config"]
+    one_step, one_collect = sharded["step"], sharded["collect"]
+    state, sstate = sharded["state"], sharded["sstate"]
+    tables = sharded["tables"]
+    one_ms = {"step": time_ms(lambda: one_step(dt, sstate), 20),
+              "collect": time_ms(lambda: one_collect(dt, state), 10)}
+    out = {"layouts": {}, "one_ms": one_ms, "combine_err": 0}
+    launches = {"combine_groups": 0, "sharded_step": 0, "sharded_collect": 0}
+
+    def grouped(fn, *args):
+        """``fn(*args)`` with the grouped path's launches counted from 0 and
+        added to ``launches`` (comparison runs count nothing)."""
+        A.reset_launch_counts()
+        result = fn(*args)
+        counts = {**A.launch_counts(), **A.group_launch_counts()}
+        for key in launches:
+            launches[key] += counts[key]
+        return result
+
+    for name, devices in group_layouts().items():
+        mesh = M.make_mesh(N_SHARDS, devices=devices)
+        out["combine_err"] = max(out["combine_err"], check_combine_groups(sstate, len(devices)))
+        step = M.make_sharded_step(mesh, auto_jobs=True, config=config)
+        gs, ks, ps = M.shard_state(sstate, mesh), sstate, sstate
+        err = 0
+        for _ in range(6):
+            gs = grouped(step, dt, gs)
+            ks = one_step(dt, ks)
+            ps = M.sharded_step_plain(dt, ps, N_SHARDS, True, config)
+            full = M.gather_state(gs)
+            err = max(err, max_abs_err(full, M.gather_state(ks)),
+                      max_abs_err(full, M.gather_state(ps)))
+        collect = MR.MeshKernelRunner(mesh=mesh)._sharded_collect(8, config)
+        dts = tuple(dt.to(d) for d in mesh.devices)
+        cur = state
+        for chunk in range(24):
+            gstate, grows = grouped(collect, dts, M.shard_state(cur, mesh))
+            ks, krows = one_collect(dt, cur)
+            ps, prows = MR.sharded_collect_plain(dt, cur, 8, N_SHARDS, config)
+            rows = torch.cat([r.to(dev) for r in grows], 1)
+            full = M.gather_state(gstate)
+            err = max(err, max_abs_err({"rows": rows}, {"rows": krows}),
+                      max_abs_err({"rows": rows}, {"rows": prows}),
+                      max_abs_err(full, M.gather_state(ks)), max_abs_err(full, M.gather_state(ps)))
+            jobs = []
+            T = state["elem"].shape[0] // N_SHARDS
+            for s in range(N_SHARDS):
+                jobs += (s * T + kb.parked_jobs(tables, shard_slice(ks, s))).tolist()
+            # every shard's loop went quiet in this chunk (rows past a
+            # shard's quiescence stay zero)
+            quiet = bool((krows.view(8, N_SHARDS, -1)[:, :, -2] == 0).any(0).all())
+            cur = A.complete_jobs(ks, jobs) if jobs else ks
+            if not jobs and quiet:
+                break
+        if err:
+            raise AssertionError(f"phase17 {name}: the grouped mesh differs from the one-group "
+                                 f"launch or the plain version (max abs err {err})")
+        gs0 = M.shard_state(sstate, mesh)
+        gc0 = M.shard_state(state, mesh)
+        out["layouts"][name] = {
+            "groups": [(str(d), b) for d, b in mesh.groups], "chunks": chunk + 1,
+            "step_ms": time_ms(lambda: step(dt, gs0), 20),
+            "collect_ms": time_ms(lambda: collect(dts, gc0), 10)}
+    if launches["combine_groups"] <= 0 or launches["sharded_collect"] <= 0 \
+            or out["combine_err"]:
+        raise AssertionError(f"phase17: the cross-group counter sum launched "
+                             f"{launches['combine_groups']} times, max abs err "
+                             f"{out['combine_err']}")
+    out["launches"] = launches
+    for name, lay in out["layouts"].items():
+        log(f"phase17 mesh groups [{card}] {name} {lay['groups']}: 6 sharded steps and "
+            f"{lay['chunks']} collect chunks with job waves byte-equal to the one-group launch "
+            f"and the plain version; per call step {lay['step_ms']:.4f} ms (one group "
+            f"{one_ms['step']:.4f}), collect chunk {lay['collect_ms']:.4f} ms (one group "
+            f"{one_ms['collect']:.4f})")
+    log(f"phase17 launches [{card}] of the grouped runs over the layouts (counted from 0 "
+        f"around each grouped call; comparisons and timings not counted): combine_groups {launches['combine_groups']} (k_combine_groups, max abs "
+        f"err against its plain version {out['combine_err']}), sharded_step "
+        f"{launches['sharded_step']}, sharded_collect {launches['sharded_collect']}")
+
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    got = fn(*args)
+    cpu_fn, cpu_args = graft_entry.entry(device="cpu")
+    err = max_abs_err(M.gather_state(got), cpu_fn(*cpu_args))
+    if err or int(got["transitions"]) <= 0:
+        raise AssertionError(f"phase17 entry(): max abs err {err} against the plain version, "
+                             f"transitions {int(got['transitions'])}")
+    ran = graft_entry.dryrun_multichip(N_SHARDS)
+    out["graft"] = {"transitions": int(got["transitions"]), "layout": ran,
+                    "seconds": time.perf_counter() - t0}
+    log(f"phase17 graft entry [{card}]: entry() one step byte-equal to its plain version "
+        f"(transitions {int(got['transitions'])}); dryrun_multichip({N_SHARDS}) OK on "
+        f"{ran['groups']} groups on {', '.join(ran['cards'])}, blocks per group "
+        f"{ran['blocks']}; {out['graft']['seconds']:.1f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3530,6 +3679,7 @@ def main() -> int:
     front = phase_grpc(card, runtime, n_requests=300)
     phase_standalone(card, front)
     phase_gates(card)
+    phase_mesh_groups(sharded, dev, card)
     timing["decision"] = {**decision["bench"]}
     worst["decision"] = decision["err"]
     log(f"sharded timings [{card}] at {N_SHARDS} shards of the serving geometry: "

@@ -434,6 +434,57 @@ def test_sharded_step_matches_plain(cuda, n_shards, overflow_shard, path):
         assert int(single["transitions"]) == int(ks["transitions"])
 
 
+def _assert_results_equal(got: list, want: list) -> None:
+    for g, c in zip(got, want, strict=True):
+        assert (g.overflow, g.quiesced, len(g.steps)) == (c.overflow, c.quiesced, len(c.steps))
+        for a, b in zip(g.steps, c.steps):
+            assert all(np.array_equal(a[k], b[k]) for k in a)
+        assert all(np.array_equal(g.state[k], c.state[k]) for k in g.state)
+
+
+def _grouped_mesh_matches(devices, overflow_shard: bool) -> None:
+    """The grouped sharded step (10 steps) and the grouped runner over a mesh
+    of 8 shards on ``devices``, byte-equal to the one-group launch and to the
+    plain version; one cross-group counter sum per step."""
+    first = torch.device(devices[0])
+    tables, dt, state = _sharded_state(8, first, overflow_shard)
+    config = tables.kernel_config
+    mesh = M.make_mesh(8, devices=devices)
+    grouped = M.make_sharded_step(mesh, auto_jobs=True, config=config)
+    one = M.make_sharded_step(M.make_mesh(8, first), auto_jobs=True, config=config)
+    gs, ks, ps = M.shard_state(state, mesh), state, state
+    A.reset_launch_counts()
+    for _ in range(10):
+        gs = grouped(dt, gs)
+        ks = one(dt, ks)
+        ps = M.sharded_step_plain(dt, ps, 8, True, config)
+        _assert_state_equal(M.gather_state(gs), ps)
+        _assert_state_equal(M.gather_state(gs), ks)
+    assert A.group_launch_counts()["combine_groups"] == 10
+    assert bool(M.gather_state(gs)["overflow"]) == overflow_shard
+    for group, (dev, _) in zip(gs, mesh.groups):
+        assert all(v.device == dev for v in group.values())
+
+    registry = _shard_registry()
+    results = {}
+    for name, runner_mesh in (("grouped", mesh), ("one", M.make_mesh(8, first)),
+                              ("plain", M.make_mesh(8, "cpu"))):
+        runner = MR.MeshKernelRunner(mesh=runner_mesh)
+        results[name] = runner.run_groups(_shard_requests(
+            registry, registry.device_tables_for(runner_mesh.device), 8))
+    _assert_results_equal(results["grouped"], results["plain"])
+    _assert_results_equal(results["grouped"], results["one"])
+
+
+@pytest.mark.parametrize("overflow_shard", [False, True])
+@pytest.mark.parametrize("groups", [2, 8])
+def test_grouped_mesh_on_one_card_matches_one_group_and_plain(cuda, groups, overflow_shard):
+    """Launch groups on one card (``[cuda:0] * groups``): each group's
+    blocks take their own launches, the counters are summed by
+    ``k_combine_groups``."""
+    _grouped_mesh_matches([torch.device("cuda", 0)] * groups, overflow_shard)
+
+
 def test_sharded_launch_counts(cuda):
     registry = _shard_registry()
     dt = registry.device_tables_for(cuda)
@@ -1031,7 +1082,8 @@ def test_launches_follow_the_tensors_card(second_card):
     fused chunk), run_group (its row-ready events), run_to_completion (the
     grid kernel and its occupancy query), the decision kernel (the lanes
     occupancy) and a 2-shard mesh (the sharded chunk and the runner's row
-    fetch) all run on cuda:1, byte-equal to the plain version."""
+    fetch) all run on cuda:1, byte-equal to the plain version; a mesh of
+    launch groups on cuda:0 and cuda:1 runs each group on its card."""
     card = second_card
     assert torch.cuda.current_device() == 0
     tables, dt, state = _setup("mixed", 2048, None, seed=5, device=card)
@@ -1068,6 +1120,9 @@ def test_launches_follow_the_tensors_card(second_card):
         for a, b in zip(g.steps, c.steps):
             assert all(np.array_equal(a[k], b[k]) for k in a)
         assert all(np.array_equal(g.state[k], c.state[k]) for k in g.state)
+    # a mesh of launch groups on both cards: each group's launches on its
+    # card, the counters summed on cuda:0 and copied back to cuda:1
+    _grouped_mesh_matches([torch.device("cuda", 0), card], overflow_shard=True)
     assert torch.cuda.current_device() == 0
 
 

@@ -38,8 +38,8 @@ REWRITTEN = {
     "ops/automaton.py": "the device program: plain PyTorch and the kernels' wrappers",
     "ops/decision.py": "host compiler copied; batch evaluation on torch and the kernel",
     "ops/parity.py": "step-event decoding on the port's packed rows",
-    "parallel/mesh.py": "shard blocks on one card",
-    "parallel/mesh_runner.py": "one sharded dispatch of the shard blocks on one card",
+    "parallel/mesh.py": "launch groups of shard blocks, each on one card",
+    "parallel/mesh_runner.py": "one sharded dispatch of each launch group's blocks on its card",
     "engine/kernel_backend.py": "registry half and the backend's host members copied; "
                                 "the device half and the backend's device members on torch",
     "observability/profiler.py": "device list, memory gauges and trace capture on torch.cuda",

@@ -55,3 +55,42 @@ def test_module_loads_no_torch_or_jax(module):
     assert loaded(module) == []
     reference = module.replace("zeebe_tpu_torch", "zeebe_tpu", 1)
     assert loaded(reference) == []
+
+
+#: runs the command line's ``eligibility --deployed`` over ``sys.argv[2]``
+#: and prints its exit code and which of torch and JAX the run loaded
+_DEPLOYED = ("import contextlib, io, json, sys; cli = __import__(sys.argv[1], "
+             "fromlist=['main']); out = io.StringIO()\n"
+             "with contextlib.redirect_stdout(out):\n"
+             "    rc = cli.main(['eligibility', '--deployed', '--data-dir', sys.argv[2]])\n"
+             "print(json.dumps({'rc': rc, 'report': json.loads(out.getvalue()), "
+             "'loaded': sorted(m for m in ('torch', 'jax') if m in sys.modules)}))")
+
+
+def test_eligibility_deployed_loads_no_torch(tmp_path):
+    """``eligibility --deployed`` builds the port's ``KernelRegistry`` over a
+    data directory's deployed definitions: host-only work, so it loads no
+    torch (the kernel backend imports torch inside its device half), as the
+    reference's loads no JAX."""
+    import json
+    import subprocess
+    import sys
+
+    from zeebe_tpu_torch.models.bpmn import Bpmn
+    from zeebe_tpu_torch.testing import EngineHarness
+
+    h = EngineHarness(directory=tmp_path)
+    try:
+        h.deploy(Bpmn.create_executable_process("imports_dep").start_event("s")
+                 .service_task("t", job_type="w").end_event("e").done())
+        h.pump()
+    finally:
+        h.close()
+    for cli in ("zeebe_tpu_torch.cli", "zeebe_tpu.cli"):
+        proc = subprocess.run([sys.executable, "-c", _DEPLOYED, cli, str(tmp_path)],
+                              cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert run["rc"] == 0, (cli, run)
+        assert [r["bpmnProcessId"] for r in run["report"]["definitions"]] == ["imports_dep"]
+        assert run["loaded"] == [], (cli, run["loaded"])

@@ -6,9 +6,9 @@ The counterpart of ``zeebe_tpu/broker/broker.py``, copied
 ``"cpu"`` runs the plain version) reaches every partition's
 ``KernelBackend`` and the broker's own mesh runner. The auto mesh counts
 the CUDA cards in a killable child (``utils/backend_probe.py``) and is 1 on
-the CPU, so it turns on only where two or more cards answer. The count
-sizes the mesh alone: every shard block of the port's mesh lies on one
-card (``parallel.mesh.make_mesh``) until shards spread over cards.
+the CPU, so it turns on only where two or more cards answer; the runner
+then takes one launch group per card (``parallel.mesh.card_mesh``), one
+partition's shard block on each.
 
 ``InProcessCluster`` is the ClusteringRule equivalent (qa/integration-tests
 ClusteringRule.java:105): N brokers in one process over the loopback network,
@@ -121,9 +121,9 @@ def _auto_device_count(device=None) -> int:
     plain version has one device). On CUDA it is the number of cards,
     resolved ONCE per process by probing in a killable subprocess: a wedged
     driver can hang the first CUDA call, and broker startup must never block
-    on it. Probe failure = 0 (no mesh). The count only sizes the mesh: the
-    port's mesh puts every shard block on one card, so on a host of two
-    cards the second stays idle until shards spread over cards."""
+    on it. Probe failure = 0 (no mesh). On a host of two or more cards the
+    broker's runner puts one launch group on each card
+    (``parallel.mesh.card_mesh``)."""
     import torch
 
     global _AUTO_DEVICE_COUNT
@@ -528,8 +528,8 @@ class Broker:
             return self._injected_mesh_runner
         shards = self.cfg.kernel_mesh_shards
         if shards < 0:
-            # auto: as many shards as attached cards (all of them blocks on
-            # the one card the broker's device names), capped at the broker's
+            # auto: as many shards as attached cards (one launch group per
+            # card, parallel.mesh.card_mesh), capped at the broker's
             # partition count (extra shards would be permanent dummy-block
             # padding and larger per-chunk transfers); below 2 the direct
             # single-device dispatch path wins (no runner indirection)

@@ -12,18 +12,21 @@
 //     independent shard blocks; the counters come back as the input plus
 //     the sum of the shards' deltas (int32, wrapping), overflow as the OR of
 //     the shards' flags.
+//     On a mesh of several launch groups (parallel/mesh.py) each group's
+//     blocks take this step and k_combine_groups sums the groups' counters.
 //   - zeebe_tpu/parallel/mesh_runner.py::MeshKernelRunner._sharded_collect
 //     (:233): run_collect of NS shard blocks, each leaving the chunk on its
 //     own quiescence, with per-shard counters and packed rows
 //     [n_steps, NS * row_len], shard s at columns [s*row_len, (s+1)*row_len).
 //
 // The shard axis. The reference puts one shard on each device of a mesh;
-// here all NS shard blocks live on one card. Every per-instance access uses
-// the global row shard * I + inst (token inst values are local to their
-// shard block, as under shard_map); the free-slot and request prefix sums
-// restart at each shard; the control words (go, active, any live, scan
-// totals) and the counters are per shard. With NS = 1 every kernel computes
-// exactly what it did before the shard axis.
+// here a launch takes NS shard blocks on one card (a mesh's launch group).
+// Every per-instance access uses the global row shard * I + inst (token
+// inst values are local to their shard block, as under shard_map); the
+// free-slot and request prefix sums restart at each shard; the control
+// words (go, active, any live, scan totals) and the counters are per
+// shard. With NS = 1 every kernel computes exactly what it did before the
+// shard axis.
 //
 // What bounds them on an H100: a step must read once the tables and state
 // arrays its KernelConfig uses, and write once those it changes
@@ -1111,6 +1114,34 @@ __global__ void k_combine(ZtState in, ZtState st, int32_t* transitions,
   *overflow = ovf ? 1 : 0;
 }
 
+// The cross-group counter sum of a mesh of several launch groups, the
+// reference's psum over devices: row g of rows [G, 4] holds group g's
+// counters after its step (transitions, jobs_created, completed, overflow as
+// 0 or 1), every group having started from the same replicated counters
+// in_*. Writes the input plus the sum of the groups' deltas (wrapping int32)
+// and the OR of the groups' flags. G is a handful of cards or groups and the
+// rows are 16 bytes each: one thread walks them.
+__global__ void k_combine_groups(const int32_t* rows, int G, const int32_t* in_t,
+                                 const int32_t* in_j, const int32_t* in_c,
+                                 int32_t* transitions, int32_t* jobs_created,
+                                 int32_t* completed, uint8_t* overflow) {
+  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  const unsigned t0 = (unsigned)*in_t, j0 = (unsigned)*in_j, c0 = (unsigned)*in_c;
+  unsigned dt = 0, dj = 0, dc = 0;
+  bool ovf = false;
+  for (int g = 0; g < G; ++g) {
+    const int32_t* row = rows + 4 * (int64_t)g;
+    dt += (unsigned)row[0] - t0;
+    dj += (unsigned)row[1] - j0;
+    dc += (unsigned)row[2] - c0;
+    ovf = ovf || row[3] != 0;
+  }
+  *transitions = (int)(t0 + dt);
+  *jobs_created = (int)(j0 + dj);
+  *completed = (int)(c0 + dc);
+  *overflow = ovf ? 1 : 0;
+}
+
 // ---------------------------------------------------------------------------
 // The grid kernel: run_to_completion in ONE launch.
 //
@@ -1506,6 +1537,17 @@ int zt_combine(const ZtState* in, const ZtState* st, int32_t* transitions,
                int32_t* jobs_created, int32_t* completed, uint8_t* overflow, void* stream) {
   k_combine<<<1, 32, 0, (cudaStream_t)stream>>>(*in, *st, transitions, jobs_created,
                                                  completed, overflow);
+  return (int)cudaGetLastError();
+}
+
+// A grouped mesh's cross-group counter sum (after every group's step):
+// writes the scalar counters of the result on the rows' card.
+int zt_combine_groups(const int32_t* rows, int G, const int32_t* in_t, const int32_t* in_j,
+                      const int32_t* in_c, int32_t* transitions, int32_t* jobs_created,
+                      int32_t* completed, uint8_t* overflow, void* stream) {
+  if (G < 1) return (int)cudaErrorInvalidValue;
+  k_combine_groups<<<1, 32, 0, (cudaStream_t)stream>>>(rows, G, in_t, in_j, in_c, transitions,
+                                                        jobs_created, completed, overflow);
   return (int)cudaGetLastError();
 }
 

@@ -56,7 +56,6 @@ from types import SimpleNamespace
 from typing import Any, Callable
 
 import numpy as np
-import torch
 
 from zeebe_tpu_torch.engine.device_health import SUSPECT, shared_device_health
 from zeebe_tpu_torch.engine.eligibility import PathAccounting, esp_start_host_reason
@@ -65,18 +64,6 @@ from zeebe_tpu_torch.feel.feel import Lit as _FeelLit
 from zeebe_tpu_torch.feel.feel import Var as _FeelVar
 from zeebe_tpu_torch.models.bpmn import parse_bpmn_xml, transform
 from zeebe_tpu_torch.models.bpmn.executable import ExecutableElement, ExecutableProcess
-from zeebe_tpu_torch.ops import kernels
-from zeebe_tpu_torch.ops.automaton import (
-    PHASE_AT,
-    PHASE_DONE,
-    PHASE_WAIT,
-    DeviceTables,
-    complete_jobs,
-    resolve_device,
-    run_collect,
-    state_from_numpy,
-    unpack_events,
-)
 from zeebe_tpu_torch.ops.tables import (
     _MI_BODY_TYPES,
     ConditionNotCompilable,
@@ -90,7 +77,6 @@ from zeebe_tpu_torch.ops.tables import (
     compile_tables,
 )
 from zeebe_tpu_torch.ops.tables import f64_exact as _f64_exact
-from zeebe_tpu_torch.parallel.mesh_runner import GroupRequest, _pad_axis0
 from zeebe_tpu_torch.protocol import ValueType
 from zeebe_tpu_torch.protocol.enums import BpmnElementType, BpmnEventType, ErrorType
 from zeebe_tpu_torch.protocol.intent import (
@@ -101,7 +87,11 @@ from zeebe_tpu_torch.protocol.intent import (
     TimerIntent,
 )
 from zeebe_tpu_torch.protocol.intent import ProcessInstanceIntent as PI
-from zeebe_tpu_torch.utils.device_link import shared_router
+
+# torch, the kernels, the automaton and the mesh runner are imported inside
+# the device half's functions, as the reference imports JAX: the registry
+# half (``KernelRegistry`` and the host helpers above it) loads no torch, so
+# the command line's ``eligibility --deployed`` stays host-only work
 
 logger = logging.getLogger(__name__)
 
@@ -998,6 +988,8 @@ class KernelRegistry:
         per device. ``None`` = the default device (the plain property)."""
         if device is None:
             return self.device_tables
+        import torch
+
         dev = torch.device(device)
         cached = self._device_by_dev.get(dev)
         if cached is None:
@@ -1057,7 +1049,7 @@ class KernelRegistry:
 class Token:
     slot: int  # token-pool slot (assigned by build_group_arrays)
     elem_idx: int
-    phase: int = PHASE_AT
+    phase: int = _PHASE_AT
 
 
 @dataclasses.dataclass
@@ -1111,6 +1103,8 @@ def group_state(arrays: dict, device=None) -> dict:
     """The group's initial kernel state on ``device``: the host-filled arrays
     plus zero incident flags and counters. The arrays are copied, never
     shared, so they still hold the group's start after it ran."""
+    from zeebe_tpu_torch.ops.automaton import resolve_device, state_from_numpy
+
     I = arrays["def_of"].shape[0]
     return state_from_numpy({
         **arrays,
@@ -1139,6 +1133,8 @@ def _dispatch(dt: DeviceTables, state: dict, chunk: int, config, collect) -> _Ch
     state, packed = collect(dt, state, n_steps=chunk, config=config)
     if not packed.is_cuda:
         return _Chunk(state, packed, None)
+    import torch
+
     # the copy and its event on the rows' card, whichever card is current
     with torch.cuda.device(packed.device):
         rows = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
@@ -1206,6 +1202,8 @@ def run_group(dt: DeviceTables, config, state: dict, I: int, T: int,
     ``defense`` runs the group through the device-fault seam (chaos hooks,
     dispatch watchdog, containment, sampled shadow verification); without
     it nothing of the seam runs."""
+    from zeebe_tpu_torch.ops.automaton import run_collect
+
     collect = collect or run_collect
     if pipeline_chunks is None:
         pipeline_chunks = state["elem"].is_cuda
@@ -1225,6 +1223,8 @@ def _complete_device_run(pg, cur: _Chunk, collect, fetch, chunk_steps: int,
     the geometry and whether to prefetch; the loop sets its ``chunks_run``
     and, when the group does not quiesce or overflows its token pool, its
     ``fail_reason``."""
+    from zeebe_tpu_torch.ops.automaton import unpack_events
+
     chunk = chunk_steps
     T, I = pg.T, pg.I
     FO = pg.dt.out_target.shape[2]
@@ -1277,6 +1277,8 @@ def _profiler_annotation(name: str):
 
     if not get_tracer().enabled:
         return contextlib.nullcontext()
+    import torch
+
     return torch.profiler.record_function(name)
 
 
@@ -1427,7 +1429,12 @@ def _suspect_probe_due(health) -> bool:
 
 
 #: runtime errors that are no device fault: the seam lets them propagate
-_NOT_DEVICE_FAULTS = (kernels.KernelBuildError, NotImplementedError, RecursionError)
+def _not_device_faults() -> tuple:
+    """The errors the seam never contains: a kernel library that does not
+    build, and program faults."""
+    from zeebe_tpu_torch.ops.kernels import KernelBuildError
+
+    return (KernelBuildError, NotImplementedError, RecursionError)
 
 
 class DeviceDefense:
@@ -1528,7 +1535,7 @@ class DeviceDefense:
         try:
             return fn()
         except RuntimeError as exc:
-            if isinstance(exc, _NOT_DEVICE_FAULTS):
+            if isinstance(exc, _not_device_faults()):
                 raise
             self._contain_device_failure(pg, exc, where=where)
             return None
@@ -1613,6 +1620,8 @@ class DeviceDefense:
     def _host_tables(self, dt: DeviceTables) -> DeviceTables:
         """The group's tables on the CPU (the last set is kept)."""
         if self._host_tables_of is None or self._host_tables_of[0] is not dt:
+            from zeebe_tpu_torch.ops.automaton import DeviceTables
+
             host = DeviceTables(**{f.name: getattr(dt, f.name).cpu()
                                    for f in dataclasses.fields(DeviceTables)})
             self._host_tables_of = (dt, host)
@@ -1632,6 +1641,8 @@ class DeviceDefense:
         but without the chaos and watchdog seam (the oracle must not be
         faultable). Returns (steps, rows per chunk); raises when the oracle
         itself does not finish the group."""
+        from zeebe_tpu_torch.ops.automaton import run_collect
+
         dt = self._host_tables(pg.dt)
         chunk_steps, max_steps = self._oracle_chunking(pg)
         oracle = _DeviceRun(dt, pg.config, pg.I, pg.T, chunk_steps, max_steps,
@@ -1701,7 +1712,7 @@ def cascade_ops(tables: ProcessTables, inst: GroupInstance, steps: list[dict]) -
 
 
 def _host(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
 
 
 def parked_jobs(tables: ProcessTables, state: dict) -> np.ndarray:
@@ -1713,7 +1724,7 @@ def parked_jobs(tables: ProcessTables, state: dict) -> np.ndarray:
     def_of = _host(state["def_of"])
     live = elem >= 0
     op = np.where(live, tables.kernel_op[def_of[inst], np.maximum(elem, 0)], 0)
-    return np.flatnonzero(live & (phase == PHASE_WAIT) & (op == K_TASK))
+    return np.flatnonzero(live & (phase == _PHASE_WAIT) & (op == K_TASK))
 
 
 def live_tokens(state: dict, insts: list[GroupInstance]) -> None:
@@ -1750,6 +1761,8 @@ def drive_group(tables: ProcessTables, dt: DeviceTables, insts: list[GroupInstan
     Raises when the group does not fit the packing bounds, does not
     quiesce, overflows its token pool, or (with ``defense``) is declined by
     the fault seam. ``collect`` and ``defense`` as for run_group."""
+    from zeebe_tpu_torch.ops.automaton import complete_jobs
+
     built = build_group_arrays(tables, insts, max_group)
     if built is None:
         raise ValueError("group geometry exceeds the event packing bounds")
@@ -1789,6 +1802,8 @@ def run_group_on_mesh(runner, registry: KernelRegistry, arrays: dict, I: int, T:
     its result mapped to the reference's fail reasons (``mesh-dispatch-error``,
     ``mesh-no-quiesce``, ``mesh-token-overflow``). The run's ``state`` is the
     group's host arrays after the run, at the dispatch's geometry."""
+    from zeebe_tpu_torch.parallel.mesh_runner import GroupRequest
+
     result = runner.submit(GroupRequest(
         device_tables=registry.device_tables_for(runner.mesh.device),
         config=registry.tables.kernel_config,
@@ -1824,6 +1839,9 @@ def _drive_partition(runner, registry: KernelRegistry, insts: list[GroupInstance
                      max_waves: int) -> GroupResult:
     """One partition's waves through the runner: each wave's request is the
     previous run's state with its parked jobs completed."""
+    from zeebe_tpu_torch.ops.automaton import state_from_numpy
+    from zeebe_tpu_torch.parallel.mesh_runner import _pad_axis0
+
     tables = registry.tables
     built = build_group_arrays(tables, insts, max_group)
     if built is None:
@@ -1855,7 +1873,7 @@ def _drive_partition(runner, registry: KernelRegistry, insts: list[GroupInstance
             break
         arrays = {k: final[k] for k in _GROUP_KEYS}
         arrays["phase"] = arrays["phase"].copy()
-        arrays["phase"][jobs] = PHASE_DONE
+        arrays["phase"][jobs] = _PHASE_DONE
         live_tokens(arrays, insts)
     counters = {k: v.reshape(()) for k, v in totals.items()}
     state = state_from_numpy({**final, **counters, "incident": incident}, "cpu")
@@ -2039,6 +2057,12 @@ class KernelBackend(DeviceDefense):
                  audit_templates: bool = False,
                  max_commands_in_batch: int = 100,
                  mesh_runner=None, router="shared", device=None) -> None:
+        # the device half's modules load here, with the device, so a
+        # group's first dispatch pays no import
+        from zeebe_tpu_torch.ops import kernels
+        from zeebe_tpu_torch.ops.automaton import resolve_device
+        from zeebe_tpu_torch.utils.device_link import shared_router
+
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the kernel library is built and loaded here, so a card whose
@@ -3023,6 +3047,8 @@ class KernelBackend(DeviceDefense):
         if pg.failed:
             return None
         if pg.mesh:
+            from zeebe_tpu_torch.parallel.mesh_runner import GroupRequest
+
             t0 = time.perf_counter()
             result = self.mesh_runner.submit(GroupRequest(
                 device_tables=self.registry.device_tables_for(self.mesh_runner.mesh.device),
@@ -3093,6 +3119,8 @@ class KernelBackend(DeviceDefense):
         return group_state(pg.arrays, dev)
 
     def _dispatch_first_chunk(self, pg: "_PendingGroup") -> None:
+        from zeebe_tpu_torch.ops.automaton import run_collect
+
         dev = pg.dev
         pg.config = pg.tables.kernel_config
         pg.dt = self.registry.device_tables_for(dev)
@@ -3118,6 +3146,8 @@ class KernelBackend(DeviceDefense):
         """The chunk loop behind the group's first chunk (``pg.run``), every
         fetch through the seam: the decoded steps, or None with
         ``pg.fail_reason`` set."""
+        from zeebe_tpu_torch.ops.automaton import run_collect
+
         return _complete_device_run(
             pg, pg.run, run_collect, lambda chunk, k: self._fetch_rows(pg, chunk, k),
             self.chunk_steps, self.max_steps).steps

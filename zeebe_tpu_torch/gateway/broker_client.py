@@ -150,7 +150,9 @@ class ClusterRuntime(GatewayRuntimeBase):
         self.brokers: dict[str, Broker] = {}
         # one mesh per process: every in-process broker's partitions submit
         # kernel groups to the SAME runner, so the whole cluster's batch
-        # coalesces onto one device mesh (partition = shard, SURVEY §2.13)
+        # coalesces onto one device mesh (partition = shard, SURVEY §2.13);
+        # on a host of two or more cards the runner takes one launch group
+        # per card (parallel.mesh.card_mesh), as the broker's auto mode does
         self.mesh_runner = None
         if kernel_mesh_shards > 0 and kernel_backend:
             from zeebe_tpu_torch.parallel.mesh_runner import MeshKernelRunner

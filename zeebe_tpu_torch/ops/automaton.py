@@ -150,6 +150,15 @@ class DeviceTables:
     def device(self) -> torch.device:
         return self.kernel_op.device
 
+    def to(self, device) -> "DeviceTables":
+        """The same table set on ``device`` (this one where it already lies
+        there): a mesh's groups on other cards take a replica."""
+        dev = torch.device(device)
+        if dev == self.device:
+            return self
+        return DeviceTables(**{f.name: getattr(self, f.name).to(dev)
+                               for f in dataclasses.fields(self)})
+
 
 def state_from_numpy(arrays: dict, device=None) -> dict:
     """A reference-side state dict (numpy arrays, e.g. ``np.asarray`` of the
@@ -728,8 +737,9 @@ def run_to_completion(tables: DeviceTables, state: dict, max_steps: int = 1000,
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count, and every grid-launch count, to 0."""
-    for counts in (kernels.LAUNCHES, kernels.GRID_LAUNCHES):
+    """Set every kernel's launch count, every grid-launch count and the
+    cross-group counter sum's count to 0."""
+    for counts in (kernels.LAUNCHES, kernels.GRID_LAUNCHES, kernels.GROUP_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -742,6 +752,12 @@ def grid_launch_counts() -> dict:
     """CUDA grid launches the automaton wrappers enqueued, by path (see
     ``kernels.GRID_LAUNCHES``)."""
     return dict(kernels.GRID_LAUNCHES)
+
+
+def group_launch_counts() -> dict:
+    """Launches of a grouped mesh's cross-group counter sum (see
+    ``kernels.GROUP_LAUNCHES``)."""
+    return dict(kernels.GROUP_LAUNCHES)
 
 
 def complete_jobs(state: dict, token_slots, result_slots=None,

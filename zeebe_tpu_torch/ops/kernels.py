@@ -112,6 +112,11 @@ LAUNCHES = {"step": 0, "run_collect": 0, "run_to_completion": 0,
 # "grid" one per run_to_completion on the grid kernel.
 GRID_LAUNCHES = {"fused": 0, "chain": 0, "combine": 0, "grid": 0}
 
+# Launches of a grouped mesh's cross-group counter sum (``combine_groups``,
+# ``k_combine_groups``): one per sharded step of a mesh of several launch
+# groups (``parallel/mesh.py``).
+GROUP_LAUNCHES = {"combine_groups": 0}
+
 
 class KernelBuildError(RuntimeError):
     pass
@@ -254,6 +259,8 @@ class _Lib:
         lib.zt_complete_resources.restype = ctypes.c_int
         lib.zt_combine.argtypes = [ptr(_State), ptr(_State), _P, _P, _P, _P, _P]
         lib.zt_combine.restype = ctypes.c_int
+        lib.zt_combine_groups.argtypes = [_P, _I] + [_P] * 8
+        lib.zt_combine_groups.restype = ctypes.c_int
         lib.zt_decision.argtypes = [_P] * 6 + [_I] * 4 + [_P] * 4
         lib.zt_decision.restype = ctypes.c_int
         lib.zt_decision_lanes.argtypes = [_P] * 6 + [_I] * 4 + [_P] * 4
@@ -631,6 +638,33 @@ def run_sharded_step(tables, state: dict, num_shards: int, config,
         _check(code, "zt_combine")
         GRID_LAUNCHES["combine"] += 1
     return new_state
+
+
+def combine_groups(rows: torch.Tensor, base: dict) -> dict:
+    """A grouped mesh's cross-group counter sum on the rows' card, the
+    reference's psum over devices: ``rows`` [G, 4] int32 holds each group's
+    counters after its step (transitions, jobs_created, completed, overflow
+    as 0 or 1), ``base`` the step's input counters (0-d, replicated, on the
+    same card). Returns the four 0-d counters: the input plus the sum of the
+    groups' deltas (wrapping int32) and the OR of the flags."""
+    device = rows.device
+    G = rows.shape[0] if rows.dim() == 2 else -1
+    _require(rows, "rows", torch.int32, (G, 4), device)
+    if G < 1:
+        raise ValueError("the counter sum needs at least one group")
+    for name in _COUNTERS[:3]:
+        _require(base[name], f"base[{name!r}]", torch.int32, (), device)
+    out = {name: torch.empty((), dtype=torch.int32, device=device) for name in _COUNTERS[:3]}
+    out["overflow"] = torch.empty((), dtype=torch.bool, device=device)
+    lib = load().lib
+    with torch.cuda.device(device):
+        code = lib.zt_combine_groups(
+            rows.data_ptr(), G, *(base[name].data_ptr() for name in _COUNTERS[:3]),
+            *(out[name].data_ptr() for name in _COUNTERS),
+            torch.cuda.current_stream(device).cuda_stream)
+    _check(code, "zt_combine_groups")
+    GROUP_LAUNCHES["combine_groups"] += 1
+    return out
 
 
 def run_until_quiet(tables, state: dict, max_steps: int, config, auto_jobs: bool,

@@ -4,10 +4,10 @@ The counterpart of ``zeebe_tpu/parallel/mesh_runner.py``. The reference
 scales horizontally by adding partitions; here a partition is a shard of the
 device batch. Each partition builds its group arrays exactly as for the
 single-device path; the runner packs up to ``n_shards`` groups into one
-shard-block-aligned batch, runs ONE sharded chunked run_collect program (all
-shard blocks on one card, one kernel launch per phase, per-shard event rows
-side by side on axis 1), and hands each partition back its own per-step
-events.
+shard-block-aligned batch, runs ONE sharded chunked run_collect program (one
+kernel launch per phase over each launch group's shard blocks, per-shard
+event rows side by side on axis 1), and hands each partition back its own
+per-step events.
 
 Determinism: shards never interact — a group's step events are a pure
 function of its own arrays, so a partition's events are byte-identical
@@ -20,6 +20,15 @@ becomes the dispatch leader, drains the queue (coalescing whatever other
 partitions enqueued while the device was busy), and wakes the waiters. The
 leader blocks on each chunk's packed rows arriving in pinned host memory.
 ``run_groups()`` underneath is the deterministic, synchronous seam.
+
+On a mesh of several launch groups (``parallel/mesh.py``) a dispatch runs
+each group's blocks on the group's card: the chunk of every group is
+enqueued before the leader waits on any rows, the tables are replicated
+per card, and the groups' packed rows and final states are joined in shard
+order, so the decoder reads the layout of a one-group dispatch. The
+counters stay per shard, as the reference's runner keeps them. Without a
+mesh the runner takes ``mesh.card_mesh``'s layout: one group per card on a
+host of two or more cards, else every block on the one card.
 
 Beyond the reference, a ``GroupResult`` carries its group's state after the
 run (host arrays of the dispatch's geometry): the port has no engine state
@@ -42,7 +51,8 @@ from zeebe_tpu_torch.parallel.mesh import (
     _REPLICATED_KEYS,
     _SHARDED_KEYS,
     _shard_slices,
-    make_mesh,
+    card_mesh,
+    gather_state,
     shard_state,
 )
 
@@ -153,9 +163,13 @@ class MeshKernelRunner:
                  batch_window_s: float = 0.0, adaptive_window: bool = False,
                  device=None) -> None:
         # without a mesh, ``n_shards`` shard blocks on ``device`` (None = the
-        # current CUDA card; "cpu" runs the plain version)
-        self.mesh = mesh if mesh is not None else make_mesh(n_shards, device)
+        # cards there are, one group each where there are two or more;
+        # "cpu" runs the plain version)
+        self.mesh = mesh if mesh is not None else card_mesh(n_shards, device)
         self.n_shards = self.mesh.n_shards
+        # the requests' tables replicated on each group's card, by table
+        # fingerprint and card
+        self._tables: dict = {}
         # > 0: the dispatch leader waits this long before draining the queue,
         # trading a little latency for more coalescing (tests use it to make
         # multi-thread coalescing deterministic)
@@ -206,6 +220,7 @@ class MeshKernelRunner:
         state = shard_state(host, self.mesh)
 
         collect = self._sharded_collect(chunk, lead.config)
+        dt = self._tables_for(lead)
         FO = lead.device_tables.out_target.shape[2]
         row_len = T_c * (2 + FO) + 2
         n_req = len(requests)
@@ -213,7 +228,7 @@ class MeshKernelRunner:
         quiesced = [False] * n_req
         overflow = [False] * n_req
         for _ in range(max(1, max_steps // chunk)):
-            state, packed = collect(lead.device_tables, state)
+            state, packed = collect(dt, state)
             flat = _fetch(packed)  # [chunk, S*row_len]
             for ri in range(n_req):
                 if quiesced[ri]:
@@ -233,28 +248,53 @@ class MeshKernelRunner:
                     quiesced[ri] = True
             if all(quiesced):
                 break
-        final = {k: v.cpu().numpy() for k, v in state.items()}
+        final = {k: v.numpy() for k, v in gather_state(state).items()}
         return [
             GroupResult(steps=steps_per[ri], overflow=overflow[ri],
                         quiesced=quiesced[ri], state=_block(final, ri, S))
             for ri in range(n_req)
         ]
 
+    def _tables_for(self, request: GroupRequest):
+        """The request's tables for the mesh: as given on a one-group mesh,
+        else one replica per group's device, cached by fingerprint and
+        device (a request's tables lie on the mesh's first device)."""
+        if len(self.mesh.groups) == 1:
+            return request.device_tables
+        out = []
+        for dev in self.mesh.devices:
+            key = (request.tables_fingerprint, dev)
+            if key not in self._tables:
+                self._tables[key] = request.device_tables.to(dev)
+            out.append(self._tables[key])
+        return tuple(out)
+
     def _sharded_collect(self, n_steps: int, config):
         """The sharded chunk program ``(tables, state) → (state', packed)``:
         CPU tensors take ``sharded_collect_plain``; CUDA tensors take the
-        kernels, one launch per phase over all shards."""
-        S = self.n_shards
+        kernels, one launch per phase over a group's shards. On a mesh of
+        several groups ``tables``, ``state`` and ``packed`` are tuples, one
+        entry per group, and every group's chunk is enqueued before any
+        host wait."""
 
-        def collect(dt, state):
+        def collect_group(dt, state, blocks):
             dev = state["elem"].device
             if dev.type == "cpu":
-                return sharded_collect_plain(dt, state, n_steps, S, config)
+                return sharded_collect_plain(dt, state, n_steps, blocks, config)
             if dev.type != "cuda":
                 raise ValueError(f"unsupported device {dev}")
             return kernels.run_steps(dt, state, n_steps=n_steps, config=config,
                                      auto_jobs=False, emit_events=True,
-                                     mode="collect", num_shards=S, sharded=True)
+                                     mode="collect", num_shards=blocks, sharded=True)
+
+        if len(self.mesh.groups) == 1:
+            S = self.n_shards
+            return lambda dt, state: collect_group(dt, state, S)
+
+        def collect(dts, states):
+            outs = [collect_group(dt, st, blocks)
+                    for dt, st, (_, blocks) in zip(dts, states, self.mesh.groups)]
+            return tuple(o[0] for o in outs), tuple(o[1] for o in outs)
 
         return collect
 
@@ -318,20 +358,31 @@ class MeshKernelRunner:
         return waiter.result
 
 
-def _fetch(packed: torch.Tensor) -> np.ndarray:
+def _fetch(packed) -> np.ndarray:
     """A chunk's packed rows on the host. On CUDA the rows are copied into
     pinned host memory behind the chunk on the stream, and the leader blocks
-    on that copy alone."""
-    if not packed.is_cuda:
-        return packed.numpy()
-    # the copy and its event on the rows' card, whichever card is current
-    with torch.cuda.device(packed.device):
-        rows = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        rows.copy_(packed, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(packed.device))
-    ready.synchronize()
-    return rows.numpy()
+    on that copy alone. A grouped dispatch's rows (one tensor per group)
+    are each copied behind their group's chunk, all copies enqueued before
+    the first wait, and joined in shard order."""
+    parts = packed if isinstance(packed, tuple) else (packed,)
+    pending = []
+    for part in parts:
+        if not part.is_cuda:
+            pending.append((part, None))
+            continue
+        # the copy and its event on the rows' card, whichever card is current
+        with torch.cuda.device(part.device):
+            rows = torch.empty(part.shape, dtype=part.dtype, pin_memory=True)
+            rows.copy_(part, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(part.device))
+        pending.append((rows, ready))
+    for _, ready in pending:
+        if ready is not None:
+            ready.synchronize()
+    if len(pending) == 1:
+        return pending[0][0].numpy()
+    return np.concatenate([rows.numpy() for rows, _ in pending], axis=1)
 
 
 def _block(final: dict, s: int, n_shards: int) -> dict:

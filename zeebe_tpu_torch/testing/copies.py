@@ -162,9 +162,10 @@ NOT_PORTED = {
     },
     "test_automaton.py": {
         "test_mesh_rejects_oversubscription":
-            "the port's mesh holds every shard block on one card, so a shard count is not a "
-            "device count; it waits for shards on several cards (ROADMAP A6); the refusal of a "
-            "card that does not exist is tests/test_torch_mesh.py's",
+            "the port's make_mesh(n) without devices is one launch group, every block on one "
+            "device, so a shard count is not a device count; the refusals of a layout over "
+            "devices (a card that does not exist, more devices than shards, CPU and CUDA "
+            "mixed) are tests/test_torch_mesh_groups.py's",
     },
 }
 
