@@ -196,7 +196,25 @@ exit) if any phase fails:
     byte-equal to its plain version and ``dryrun_multichip(8)`` (8 one-block
     groups on the one card: the sharded step twice, then the serving path
     through a ``MeshKernelRunner`` over that mesh);
-18. prints the kernels line (JSON), then the card line, then the result line.
+18. random graphs (``zeebe_tpu_torch/testing/random_graphs.py``, the port's
+    copy of the reference suite's generator): each of its 120 seeds
+    compiled as the kernel backend compiles it (a ``KernelRegistry``,
+    elements outside the device subset escaped to the host as ``K_HOST``),
+    a group of I = 64 run chunk by chunk with job waves on the fused chunk,
+    the forced chain and the plain version (rows and state byte-equal at
+    every chunk), and ``run_to_completion`` on the grid kernel and the
+    plain version with auto jobs on and off; 8 seeds also at the serving
+    geometry (I = 2048); the seeds in blocks of 8 as 8 shards (one
+    definition each, I = 32 a shard), the sharded collect and step as one
+    launch group and as 2 groups on cuda:0 against their plain versions;
+    8 seeds through the kernel-backed harness on the card, the record log
+    equal to the sequential engine's; 50 random decision tables and the
+    device suite's own (dish, its one-ulp boundary at 8.5, collect under
+    every aggregation and in rule order, intervals): ``batch_evaluate`` on
+    the card equal to the host ``DecisionEngine`` (but the reference's own
+    COLLECT COUNT difference, counted), both decision layouts byte-equal
+    to the plain version. Prints the counts and the phase's seconds;
+19. prints the kernels line (JSON), then the card line, then the result line.
 
 Three paths run the automaton's steps (``ops/kernels.py``): the fused
 chunk, one thread-block cluster per shard and ONE launch per chunk, for
@@ -231,7 +249,8 @@ run_to_completion, phase 7 for sharded_step and sharded_collect, phase 8's
 run_collect on the serving write path, phases 12, 13 and 14 for
 run_collect and sharded_collect on the cluster, phase 17 for the cross-group
 counter sum) and read right after; comparison
-launches, and phase 10's traced ``run_group``, do not count. Each entry of
+launches, phase 10's traced ``run_group`` and phase 18's random graphs do
+not count. Each entry of
 the kernels line names its path and its grid launches per call;
 run_collect's also its launches on the serving write path
 (``engine_launches``), run_collect's and sharded_collect's their launches
@@ -285,6 +304,8 @@ from zeebe_tpu_torch.protocol.intent import (
     ProcessInstanceIntent,
 )
 from zeebe_tpu_torch.testing import EngineHarness
+from zeebe_tpu_torch.testing import random_graphs as RG
+from zeebe_tpu_torch.testing.random_graphs import max_abs_err
 from zeebe_tpu_torch.testing import workloads as W
 from zeebe_tpu_torch.testing.catalog import ProcessCatalog
 from zeebe_tpu_torch.testing.chaos_device import DeviceChaosController, DeviceFaultPlan
@@ -373,19 +394,6 @@ def bound_ms(dt, state: dict, config, extra_out: int = 0) -> float:
     return moved_bytes(dt, state, config, extra_out) / HBM_BYTES_PER_S * 1e3
 
 
-def max_abs_err(a: dict, b: dict) -> int:
-    """Largest absolute difference over every tensor of two result dicts
-    (int64, so int32 extremes cannot overflow); 0 means byte-equal here."""
-    worst = 0
-    for k in a:
-        x, y = a[k].long(), b[k].long()
-        if x.shape != y.shape:
-            raise AssertionError(f"{k}: shape {tuple(x.shape)} vs {tuple(y.shape)}")
-        if x.numel():
-            worst = max(worst, int((x - y).abs().max()))
-    return worst
-
-
 def time_ms(fn, reps: int) -> float:
     """Mean milliseconds per call on the card (CUDA events, after warm-up)."""
     fn()
@@ -463,8 +471,7 @@ def group_setup(tables, I: int, T: int | None, rng, device):
     def_of = rng.integers(0, tables.num_definitions, I).astype(np.int32)
     slots = rng.integers(-5, 60, (I, tables.num_slots)).astype(np.float64)
     if T is None:
-        w = tables.token_width
-        T = kb._pow2(w * I if w > 0 else 4 * I)
+        T = RG.token_capacity(tables, I)
     state = A.make_state(tables, I, def_of, initial_slots=slots, token_capacity=T,
                          device=device)
     return state, T
@@ -1350,14 +1357,6 @@ def wide_contexts(rng, n: int, I: int = 4) -> list[dict]:
                       else float(floats[c, i])) for i in range(I)} for c in range(n)]
 
 
-def host_matches(decision, ctx: dict) -> list[int]:
-    """Matched rule indices per the host DecisionEngine's unary tests."""
-    values = [inp.expression.evaluate(ctx, lambda: 0) if inp.expression else None
-              for inp in decision.inputs]
-    return [r for r, rule in enumerate(decision.rules)
-            if all(t(v, ctx) for t, v in zip(rule.tests, values))]
-
-
 def check_lists(table, contexts, plain, label: str, dev) -> None:
     """batch_evaluate (the kernel) under every hit policy against the
     policy's decision over the plain version's outputs."""
@@ -1411,9 +1410,9 @@ def phase_decision(rng, dev, card: str) -> dict:
         parse_dmn_xml(W.dmn_band_xml("RULE ORDER")).decisions["band"])
     matched = D.batch_evaluate(rule_order, [contexts[i] for i in sample], device=dev)
     for i, got in zip(sample, matched):
-        if got != host_matches(decision, contexts[i]):
+        if got != RG.host_matches(decision, contexts[i]):
             raise AssertionError(f"context {contexts[i]}: kernel {got}, host engine "
-                                 f"{host_matches(decision, contexts[i])}")
+                                 f"{RG.host_matches(decision, contexts[i])}")
 
     wtable = wide_table(rng)
     wcontexts = wide_contexts(rng, 16_384)
@@ -1639,6 +1638,13 @@ def phase_telemetry(info: dict, dev, card: str) -> dict:
     return {"in_use": in_use, "limit": limit, "trace_bytes": len(text)}
 
 
+def harness_log(h) -> list:
+    """Every record of a harness's log: position, source position,
+    processed flag and bytes."""
+    return [(v.position, v.source_position, v.processed, v.record.to_bytes())
+            for v in h.stream.new_reader(1)]
+
+
 def serving_harness(directory) -> EngineHarness:
     """The harness with the partition's kernel backend on the card:
     ``KernelBackend(engine, max_group=2048, chunk_steps=8)``, as
@@ -1712,8 +1718,7 @@ def phase_engine(card: str, n_instances: int = 2000, kernel: bool = False) -> di
                                      f"{n_instances}")
             if not all(h.is_instance_done(k) for k in created):
                 raise AssertionError("engine: an instance is still live after the waves")
-            log_records = [(v.position, v.source_position, v.processed, v.record.to_bytes())
-                           for v in h.stream.new_reader(1)]
+            log_records = harness_log(h)
         finally:
             h.close()
     codec = native.load_codec() is not None
@@ -3624,6 +3629,168 @@ def phase_mesh_groups(sharded: dict, dev, card: str) -> dict:
     return out
 
 
+#: phase 18's sizes: the small width every seed runs at, the chunks and
+#: lock-steps each path runs at most, the seeds at the serving geometry and
+#: through the kernel-backed harness, the instances per shard of a block of
+#: 8 seeds, and the decision tables' random seeds and contexts
+RANDOM_WIDTH = 64
+RANDOM_CHUNKS = 12
+RANDOM_STEPS = 32
+RANDOM_SERVING = 8
+RANDOM_HARNESS = 8
+RANDOM_SHARD_WIDTH = 32
+RANDOM_SHARD_STEPS = 4
+RANDOM_TABLES = 50
+RANDOM_CONTEXTS = 256
+
+
+def random_layouts(dev) -> dict:
+    """Phase 18's meshes of a block of 8 shards: one launch group on the
+    card, and 2 groups on cuda:0."""
+    return {"one group": [dev], "2 groups on cuda:0": [torch.device("cuda", 0)] * 2}
+
+
+def random_harness(seeds: list[int]) -> dict:
+    """Phase 18's kernel-backed harness: each seed's graph driven as the
+    reference suite drives it, through the sequential engine and through the
+    kernel backend on the card; the record logs must be equal."""
+    out = {"seeds": 0, "records": 0, "commands": 0, "groups": 0}
+    A.reset_launch_counts()
+    for seed in seeds:
+        graph = RG.build_seed(seed)
+        logs = []
+        for kernel in (False, True):
+            reset_shared_device_health()
+            h = EngineHarness(use_kernel_backend=kernel)
+            try:
+                graph.drive(h)
+                logs.append(harness_log(h))
+                if kernel:
+                    out["commands"] += h.kernel_backend.commands_processed
+                    out["groups"] += h.kernel_backend.groups_processed
+            finally:
+                h.close()
+        if logs[0] != logs[1]:
+            first = next((i for i, (a, b) in enumerate(zip(*logs)) if a != b),
+                         min(map(len, logs)))
+            raise AssertionError(f"phase18 harness seed {seed}: the kernel backend's log "
+                                 f"differs from the sequential engine's at record {first} "
+                                 f"({len(logs[0])} vs {len(logs[1])} records)")
+        out["seeds"] += 1
+        out["records"] += len(logs[0])
+    out["launches"] = A.launch_counts()["run_collect"]
+    if out["commands"] <= 0 or out["launches"] <= 0:
+        raise AssertionError(f"phase18 harness: the kernel backend admitted {out['commands']} "
+                             f"commands, k_chunk launched {out['launches']} times")
+    return out
+
+
+def random_decisions(dev) -> dict:
+    """Phase 18's DMN: ``batch_evaluate`` on the card (the lanes kernel)
+    against the host DecisionEngine, and on the same atoms both decision
+    layouts against the plain version."""
+    out = {"tables": 0, "contexts": 0, "inherited": 0}
+    for case in RG.decision_cases(RANDOM_TABLES, RANDOM_CONTEXTS):
+        table = D.compile_decision_table(case.decision)
+        out["inherited"] += RG.check_against_host(
+            case, D.batch_evaluate(table, case.contexts, device=dev))
+        keys, valid = table.pack_contexts(case.contexts)
+        atoms = [torch.from_numpy(a).to(dev) for a in (table.kind, table.lo, table.hi,
+                                                        table.flags)]
+        kk, vv = torch.from_numpy(keys).to(dev), torch.from_numpy(valid).to(dev)
+        plain = D._evaluate_batch(*atoms, kk, vv)
+        err = max(decision_err(kernels.run_decision(*atoms, kk, vv, kernel=k), plain)
+                  for k in kernels.DECISION_KERNELS)
+        if err:
+            raise AssertionError(f"phase18 {case.label}: a decision kernel differs from "
+                                 f"plain (max abs err {err})")
+        out["tables"] += 1
+        out["contexts"] += len(case.contexts)
+    return out
+
+
+def phase_random_graphs(dev, card: str) -> dict:
+    """Phase 18: the generator's 120 random graphs through every kernel path
+    against the plain version, at the small width (I = ``RANDOM_WIDTH``), and
+    ``RANDOM_SERVING`` of them at the serving geometry (I = 2048); blocks of
+    8 seeds as 8 shards (one launch group and 2 groups on cuda:0); the
+    kernel-backed harness against the sequential engine; the DMN kernels.
+    Launches here are comparisons: none is counted on the kernels line."""
+    t_phase = time.perf_counter()
+    seconds = {}
+    counts = {"collect": {"chunks": 0, "steps": 0, "quiet_early": 0, "jobs": 0},
+              "serving": {"chunks": 0, "steps": 0, "quiet_early": 0, "jobs": 0},
+              "completion": {"runs": 0, "steps": 0}, "host_seeds": 0}
+
+    def add(into: dict, got: dict) -> None:
+        for k, v in got.items():
+            into[k] += v
+
+    t0 = time.perf_counter()
+    for seed in RG.SEEDS:
+        tables, dt, state = RG.seed_group(seed, RANDOM_WIDTH, dev)
+        counts["host_seeds"] += RG.host_escapes(tables) > 0
+        add(counts["collect"], RG.collect_paths(dt, tables, state, tables.kernel_config,
+                                                RANDOM_CHUNKS, f"phase18 seed {seed} collect"))
+        add(counts["completion"], RG.completion_paths(dt, state, tables.kernel_config,
+                                                      RANDOM_STEPS,
+                                                      f"phase18 seed {seed} completion"))
+    seconds["small"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    serving_seeds = RG.spread(RANDOM_SERVING)
+    for seed in serving_seeds:
+        tables, dt, state = RG.seed_group(seed, 2048, dev)
+        if kernels.choose_path(state["elem"].shape[0]) != "fused":
+            raise AssertionError(f"phase18 seed {seed}: I=2048 does not take the fused chunk")
+        add(counts["serving"], RG.collect_paths(dt, tables, state, tables.kernel_config,
+                                                RANDOM_CHUNKS, f"phase18 seed {seed} at I=2048"))
+    seconds["serving"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    layouts = random_layouts(dev)
+    sharded = {"blocks": 0, "chunks": 0, "steps": 0}
+    for start in range(0, len(RG.SEEDS), N_SHARDS):
+        block = list(RG.SEEDS)[start:start + N_SHARDS]
+        tables, dt, collect_state, step_state = RG.shard_block(block, RANDOM_SHARD_WIDTH, dev,
+                                                               start)
+        add(sharded, {"blocks": 1, **RG.sharded_paths(
+            dt, tables, collect_state, step_state, tables.kernel_config, layouts,
+            RANDOM_CHUNKS, RANDOM_SHARD_STEPS, f"phase18 seeds {block[0]}-{block[-1]}")})
+    seconds["sharded"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    harness = random_harness(RG.spread(RANDOM_HARNESS))
+    seconds["harness"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dmn = random_decisions(dev)
+    seconds["dmn"] = time.perf_counter() - t0
+    seconds["phase"] = time.perf_counter() - t_phase
+    c, sv, cp = counts["collect"], counts["serving"], counts["completion"]
+    log(f"phase18 random graphs [{card}]: {len(RG.SEEDS)} seeds of the reference generator, "
+        f"{counts['host_seeds']} with a K_HOST element; run_collect at I={RANDOM_WIDTH}: "
+        f"{c['chunks']} chunks, {c['steps']} lock-steps ({c['quiet_early']} chunks quiet "
+        f"before their last step, {c['jobs']} jobs completed) on the fused chunk, the chain "
+        f"and the plain version; at I=2048 (seeds {serving_seeds}): {sv['chunks']} chunks, "
+        f"{sv['steps']} lock-steps ({sv['quiet_early']} quiet early); run_to_completion: "
+        f"{cp['runs']} runs, {cp['steps']} steps on the grid kernel and the plain version "
+        f"(max_steps {RANDOM_STEPS}, auto jobs on and off); sharded: {sharded['blocks']} "
+        f"blocks of {N_SHARDS} seeds x I={RANDOM_SHARD_WIDTH} per shard, "
+        f"{sharded['chunks']} collect chunks and {sharded['steps']} steps, each on "
+        f"{len(layouts)} layouts ({', '.join(layouts)}); worst difference 0")
+    log(f"phase18 harness [{card}]: seeds {RG.spread(RANDOM_HARNESS)}: {harness['records']} "
+        f"records, the kernel backend's log equal to the sequential engine's "
+        f"({harness['groups']} groups, {harness['commands']} commands on the kernel, "
+        f"k_chunk {harness['launches']} launches); DMN: {dmn['tables']} tables, "
+        f"{dmn['contexts']} contexts, batch_evaluate on the card equal to the host "
+        f"engine but {dmn['inherited']} contexts of the reference's own difference "
+        f"({RG.INHERITED_COUNT}), lanes and serial byte-equal to the plain version; "
+        f"worst difference 0")
+    log(f"phase18 seconds [{card}]: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return {"counts": counts, "sharded": sharded, "harness": harness, "dmn": dmn,
+            "seconds": seconds}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3680,6 +3847,7 @@ def main() -> int:
     phase_standalone(card, front)
     phase_gates(card)
     phase_mesh_groups(sharded, dev, card)
+    phase_random_graphs(dev, card)
     timing["decision"] = {**decision["bench"]}
     worst["decision"] = decision["err"]
     log(f"sharded timings [{card}] at {N_SHARDS} shards of the serving geometry: "

@@ -33,6 +33,7 @@ from zeebe_tpu_torch.ops import kernels
 from zeebe_tpu_torch.ops.tables import K_TASK, KernelConfig, compile_tables
 from zeebe_tpu_torch.parallel import mesh as M
 from zeebe_tpu_torch.parallel import mesh_runner as MR
+from zeebe_tpu_torch.testing import random_graphs as RG
 from zeebe_tpu_torch.testing import workloads as W
 from zeebe_tpu_torch.testing.catalog import ProcessCatalog
 from zeebe_tpu_torch.testing.chaos_device import DeviceChaosController, DeviceFaultPlan
@@ -1306,3 +1307,42 @@ def test_soak_on_the_card_has_no_violations_and_kernel_records(cuda, tmp_path):
     assert report["restarts"] == 2 and report["withinBudget"]
     assert len(records) == 2 and min(records) > 0
     assert A.launch_counts()["run_collect"] > 0
+
+
+# ---------------------------------------------------------------------------
+# random graphs: the reference generator's seeds through every kernel path
+
+RANDOM_SEEDS = RG.spread(8)
+
+
+@pytest.mark.parametrize("seed", RANDOM_SEEDS)
+def test_random_graph_paths_match_plain(cuda, seed):
+    """One seed's graph, compiled as the kernel backend compiles it (host
+    escapes as K_HOST): run_collect chunk by chunk with job waves on the
+    fused chunk and the forced chain, and run_to_completion on the grid
+    kernel with auto jobs on and off, byte-equal to the plain version."""
+    tables, dt, state = RG.seed_group(seed, 64, cuda)
+    got = RG.collect_paths(dt, tables, state, tables.kernel_config, 12, f"seed {seed}")
+    assert got["chunks"] > 0 and got["steps"] > 0
+    assert RG.completion_paths(dt, state, tables.kernel_config, 40, f"seed {seed}")["runs"] == 2
+
+
+def test_random_graphs_as_shards_match_plain(cuda):
+    """The eight seeds, one definition each, as eight shards: the sharded
+    collect and step as one launch group and as 2 groups on cuda:0, byte-equal
+    to their plain versions."""
+    tables, dt, collect_state, step_state = RG.shard_block(RANDOM_SEEDS, 32, cuda, 8)
+    first = torch.device("cuda", 0)
+    got = RG.sharded_paths(dt, tables, collect_state, step_state, tables.kernel_config,
+                           {"one group": [cuda], "2 groups": [first] * 2}, 12, 6, "block")
+    assert got["chunks"] > 0 and got["steps"] == 6
+
+
+@pytest.mark.parametrize("seed", RANDOM_SEEDS)
+def test_random_tables_on_card_match_the_host_engine(cuda, seed):
+    """batch_evaluate on the card (the lanes kernel) on a random table of the
+    reference suite's generator gives the host DecisionEngine's results, but
+    for the reference's own COLLECT COUNT difference."""
+    case = RG.random_case(seed, 256)
+    table = D.compile_decision_table(case.decision)
+    RG.check_against_host(case, D.batch_evaluate(table, case.contexts, device=cuda))

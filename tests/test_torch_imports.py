@@ -94,3 +94,20 @@ def test_eligibility_deployed_loads_no_torch(tmp_path):
         assert run["rc"] == 0, (cli, run)
         assert [r["bpmnProcessId"] for r in run["report"]["definitions"]] == ["imports_dep"]
         assert run["loaded"] == [], (cli, run["loaded"])
+
+
+def test_random_graphs_loads_neither_jax_nor_the_reference():
+    """``zeebe_tpu_torch.testing.random_graphs`` (the generator ``chip_smoke.py``
+    runs on the card) keeps its own copy of the reference suite's generator:
+    it imports no ``jax`` and nothing of ``zeebe_tpu``."""
+    import json
+    import subprocess
+    import sys
+
+    script = ("import json, sys; import zeebe_tpu_torch.testing.random_graphs; "
+              "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
+              "or m.startswith('jax.') or m == 'zeebe_tpu' or m.startswith('zeebe_tpu.'))))")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

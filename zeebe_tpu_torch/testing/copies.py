@@ -15,6 +15,10 @@ exits 1 if any does.
 Run it as a file, not with ``-m``: it then imports nothing of the port
 either, so it can repair a copy that no longer imports.
 
+``SLICE_STACK`` holds the first slices' copies (the FEEL and BPMN model
+packages, the table compiler and the like); ``WHOLE_COPIES`` is every
+whole copy.
+
 ``ENGINE_STACK`` is bottom-up: protocol, the native codec, utilities,
 state, journal and log stream, observability, exporters, backup,
 partitioning, the engine, the stream processor. The harness
@@ -49,7 +53,16 @@ calling the port's names, ``device="cpu"`` given to every
 call of ``CPU_CALLS`` it makes (the plain version; no device is CUDA),
 ``--device cpu`` added to every command line that starts the port's
 standalone, the repository's own directory on the ``PYTHONPATH`` it gives
-a child, and the copy's file name where the file names itself.
+a child, the names of ``PORT_TEXT`` the port's, and the copy's file name
+where the file names itself. Every other reference test file is named in
+``COVERED_BY`` (the port's test files that run its flows on both
+packages) or ``JAX_OWN`` (the JAX package's own benchmark), or tests
+only modules of ``WHOLE_COPIES`` (``tests/test_torch_ref_coverage.py``).
+
+``TEST_CODE_COPIES`` are the port's modules that copy definitions of the
+reference's tests (``testing/random_graphs.py``: the random process
+generator and the DMN fixtures), written as the partial copies below are,
+with ``TEST_CODE_CALLS`` (``pytest.fail`` raised as an ``AssertionError``).
 
 The files of ``PARTIAL_COPIES`` are part copy, part rewrite:
 ``engine/kernel_backend.py`` (its device members), the partition, the
@@ -81,6 +94,19 @@ REPO = Path(__file__).resolve().parents[2]
 REFERENCE = REPO / "zeebe_tpu"
 PORT = REPO / "zeebe_tpu_torch"
 TESTS = REPO / "tests"
+
+#: the first slices' copies: the FEEL and BPMN model packages, the table
+#: compiler, the eligibility rules, the metrics registry, the host DMN
+#: engine, the device health ladder, the audit log and the device chaos
+#: plane (also held by tests/test_torch_tables.py and
+#: tests/test_torch_decision.py)
+SLICE_STACK = (
+    "feel/temporal.py", "feel/feel.py", "feel/__init__.py", "models/bpmn/model.py",
+    "models/bpmn/executable.py", "models/bpmn/xml_io.py", "models/bpmn/__init__.py",
+    "ops/tables.py", "engine/eligibility.py", "utils/metrics.py", "dmn/dmn.py",
+    "dmn/__init__.py", "engine/device_health.py", "control/audit.py",
+    "testing/chaos_common.py", "testing/chaos_device.py",
+)
 
 ENGINE_STACK = (
     "protocol/enums.py", "protocol/intent.py", "protocol/keys.py", "protocol/msgpack.py",
@@ -136,6 +162,10 @@ GATES_STACK = ("testing/sanitizer.py",)
 
 ANALYSIS_STACK = ("analysis/eligibility_notes.py",)
 
+#: every reference module the port keeps as a whole copy
+WHOLE_COPIES = (SLICE_STACK + ENGINE_STACK + CLUSTER_STACK + GATEWAY_STACK + STANDALONE_STACK
+                + GATES_STACK + ANALYSIS_STACK)
+
 #: copies that also rename the reference's path ``zeebe_tpu/``
 PORT_PATHS = ANALYSIS_STACK + ("cli.py", "analysis/__init__.py", "analysis/framework.py",
                                "analysis/knobs.py", "analysis/rules.py")
@@ -148,8 +178,48 @@ REFERENCE_TESTS = (
     "test_topology.py", "test_raft.py", "test_auditor.py", "test_critical_path.py",
     "test_timeseries.py", "test_eligibility.py", "test_observability.py",
     "test_engine_links.py", "test_update.py", "test_sanitizer.py", "test_serving.py",
-    "test_consistency.py", "test_automaton.py", "test_cli.py",
+    "test_consistency.py", "test_automaton.py", "test_cli.py", "test_profiler.py",
+    "test_device_decision.py", "test_engine_breadth.py", "test_engine_events.py",
+    "test_engine_gateways.py", "test_engine_mi_callactivity.py",
+    "test_engine_timers_messages.py", "test_exporters.py", "test_feel_temporal.py",
+    "test_forms.py", "test_native_codec.py", "test_ops.py", "test_remote_backup_stores.py",
+    "test_state_tiering.py", "test_batch_query_migration.py", "test_dmn.py",
 )
+
+#: reference test files that run on the port through other means: each with
+#: the tests/test_torch_*.py files that run its flows (or its seeds) on both
+#: packages and compare what they write
+COVERED_BY = {
+    "test_kernel_backend.py": ("test_torch_kernel_backend.py",
+                               "test_torch_kernel_backend_more.py"),
+    "test_kernel_call_inline.py": ("test_torch_kernel_shapes.py",),
+    "test_kernel_mi.py": ("test_torch_kernel_shapes.py",),
+    "test_kernel_root_esp.py": ("test_torch_kernel_shapes.py",),
+    "test_burst_templates.py": ("test_torch_kernel_pump.py",),
+    "test_pipelined_pump.py": ("test_torch_kernel_pump.py",),
+    "test_mesh_serving.py": ("test_torch_kernel_pump.py",),
+    "test_engine_e2e.py": ("test_torch_engine.py",),
+    "test_engine_replay.py": ("test_torch_engine.py",),
+    "test_multipartition.py": ("test_torch_engine.py",),
+    "test_randomized_parity.py": ("test_torch_engine.py", "test_torch_kernel_seeds.py",
+                                  "test_torch_kernel_seeds_more.py",
+                                  "test_torch_kernel_seeds_last.py",
+                                  "test_torch_random_graphs.py"),
+    "test_control.py": ("test_torch_control.py",),
+    "test_device_link.py": ("test_torch_control.py",),
+    "test_device_faults.py": ("test_torch_device_faults.py", "test_torch_kernel_faults.py",
+                              "test_torch_control.py"),
+    "test_zlint.py": ("test_torch_zlint.py",),
+}
+
+#: reference test files of the JAX package's own wall clock or benchmark,
+#: which the port does not run, and why
+JAX_OWN = {
+    "test_bench_floor.py": "wall-clock floors of bench.py, the JAX package's benchmark, on "
+                           "the CPU; the port's benchmark is its own",
+    "test_bench_smoke.py": "runs bench.py, the JAX package's benchmark, end to end; the "
+                           "port's benchmark is its own",
+}
 
 #: per reference test file, the definitions its copy leaves out, and why
 NOT_PORTED = {
@@ -159,6 +229,14 @@ NOT_PORTED = {
         "test_wedged_probe_degrades_mesh_to_host_devices":
             "the port never falls to the CPU unasked: a wedged probe stops the entry point "
             "(tests/test_torch_standalone.py)",
+    },
+    "test_profiler.py": {
+        "test_stats_map_into_gauges":
+            "the port samples torch.devices through torch.cuda's memory statistics, not a "
+            "JAX device's memory_stats(); its gauges are tests/test_torch_profiler_device.py's",
+        "test_statless_and_raising_devices_are_skipped":
+            "the port skips a CPU torch.device and a card whose torch.cuda query raises, not "
+            "a JAX device without stats; tests/test_torch_profiler_device.py holds both",
     },
     "test_automaton.py": {
         "test_mesh_rejects_oversubscription":
@@ -175,7 +253,7 @@ CPU_CALLS = ("ClusterRuntime", "InProcessCluster", "ChaosHarness", "BrokerCfg",
              "KernelBackend", "worker_cmd", "SoakHarness", "run_soak", "ScaleSoakHarness",
              "run_scale_soak", "ConsistencyConfig", "TortureConfig", "DeviceChaosConfig",
              "ServingConfig", "FleetDayConfig", "AutotuneConfig", "EngineHarness",
-             "MeshKernelRunner", "make_state", "from_numpy", "make_mesh")
+             "MeshKernelRunner", "make_state", "from_numpy", "make_mesh", "batch_evaluate")
 #: a call of the reference's API that the port names otherwise: the copy
 #: calls the port's name
 RENAMED_CALLS = {".from_tables(": ".from_numpy("}
@@ -187,6 +265,9 @@ CLI_MODULE, CLI_DEVICE_COMMAND = "zeebe_tpu_torch.cli", "metrics-doc"
 #: a path of the reference's own documents in a copied test; the copy
 #: reads the port's
 PORT_DOCS = {'REPO / "docs" / ': 'REPO / "zeebe_tpu_torch" / "docs" / '}
+#: a name the reference's code writes that the port's writes otherwise: the
+#: device capture's trace directory (``observability/profiler.py``)
+PORT_TEXT = {'"jax-trace-"': '"torch-trace-"'}
 # a child's PYTHONPATH written as an absolute directory of the reference's
 # checkout; the copy gives the child its own checkout's
 _ABSOLUTE_PYTHONPATH = re.compile(r'PYTHONPATH="/[\w/.-]+"')
@@ -329,6 +410,16 @@ PARTIAL_COPIES = {
     ),
 }
 
+#: the port's modules that copy definitions of the reference's tests, each
+#: with its runs (the reference test file, its first and last definition)
+TEST_CODE_COPIES = {
+    "testing/random_graphs.py": (("test_randomized_parity.py", "VAR_NAMES", "_fingerprint"),
+                                 ("test_dmn.py", "DISH_DMN", "COLLECT_DMN")),
+}
+#: a call of pytest in copied test code, and what the port's module does
+#: instead (it runs without pytest)
+TEST_CODE_CALLS = {"pytest.fail(": "raise AssertionError("}
+
 BEGIN = "# copied from the reference: {} .. {}"
 END = "# end of the copy"
 
@@ -367,19 +458,25 @@ def as_test_copy(text: str, name: str) -> str:
     ``device="cpu"`` (where it names no device), each command line that
     starts the standalone or runs ``metrics-doc`` given ``--device cpu``,
     the reference's documents the port's, a child's absolute
-    ``PYTHONPATH`` its own checkout, the file's own name (as a string) the
-    copy's, under a header naming its source."""
-    text = as_copied(text).replace(f'"{name}"', f'"{reference_test_copy(name).name}"')
-    for reference_text, port_text in {**RENAMED_CALLS, **PORT_DOCS}.items():
+    ``PYTHONPATH`` its own checkout, the file's own name (a string that
+    starts with it: a stack frame's ``<file>:``) the copy's, a class whose
+    every member is left out left out whole, under a header naming its
+    source."""
+    text = as_copied(text).replace(f'"{name}', f'"{reference_test_copy(name).name}')
+    for reference_text, port_text in {**RENAMED_CALLS, **PORT_DOCS, **PORT_TEXT}.items():
         text = text.replace(reference_text, port_text)
     text = _ABSOLUTE_PYTHONPATH.sub(_OWN_CHECKOUT, text)
     text = _TESTS_HELPER.sub(
         lambda m: f'import torch_kernel_flows; torch_kernel_flows.port_module("{m.group(1)}"); '
                   f"from _kflows_zeebe_tpu_torch_{m.group(1)} import ", text)
     lines = text.splitlines(keepends=True)
-    drop = NOT_PORTED.get(name, {})
-    for node, member in _with_class_members(ast.parse(text).body):
-        if definition_name(node) in drop:
+    drop = set(NOT_PORTED.get(name, {}))
+    body = ast.parse(text).body
+    emptied = {id(node) for node in body if isinstance(node, ast.ClassDef)
+               and all(definition_name(member) in drop for member in node.body)}
+    for node, member in _with_class_members(body):
+        if id(node) in emptied or (definition_name(node) in drop
+                                   and id(_class_of(body, node)) not in emptied):
             first, last = source_lines(text, node)
             if member:  # the blank lines before a class's member go too
                 while first > 1 and not lines[first - 2].strip():
@@ -407,6 +504,12 @@ def as_test_copy(text: str, name: str) -> str:
         row, col = end_line - 1, end_col - 1
         lines[row] = lines[row][:col] + added + lines[row][col:]
     return TEST_HEADER.format(name=name) + "".join(lines)
+
+
+def _class_of(body: list[ast.AST], member: ast.AST) -> ast.ClassDef | None:
+    """The class of ``body`` that ``member`` belongs to, if one."""
+    return next((node for node in body if isinstance(node, ast.ClassDef)
+                 and any(m is member for m in node.body)), None)
 
 
 def _starts_a_device(words: list) -> bool:
@@ -490,6 +593,15 @@ def splice_runs(port: str, reference: str, runs=KERNEL_BACKEND_RUNS, copy=as_cop
     return "".join(lines)
 
 
+def as_test_code(text: str) -> str:
+    """Test code as a port module copies it: ``as_copied``, each call of
+    ``TEST_CODE_CALLS`` the port's."""
+    text = as_copied(text)
+    for reference_text, port_text in TEST_CODE_CALLS.items():
+        text = text.replace(reference_text, port_text)
+    return text
+
+
 def copy_rule(rel: str):
     """How the port copies the reference's ``rel``."""
     return as_copied_with_paths if rel in PORT_PATHS else as_copied
@@ -502,8 +614,7 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     stale = []
     copies = [(PORT / rel, copy_rule(rel)((REFERENCE / rel).read_text()))
-              for rel in ENGINE_STACK + CLUSTER_STACK + GATEWAY_STACK + STANDALONE_STACK
-              + GATES_STACK + ANALYSIS_STACK]
+              for rel in WHOLE_COPIES]
     copies += [(reference_test_copy(name), as_test_copy((TESTS / name).read_text(), name))
                for name in REFERENCE_TESTS]
     for dst, want in copies:
@@ -517,6 +628,16 @@ def main(argv: list[str] | None = None) -> int:
         dst = PORT / rel
         text = dst.read_text()
         want = splice_runs(text, (REFERENCE / rel).read_text(), runs, copy_rule(rel))
+        if want != text:
+            stale.append(dst.relative_to(REPO).as_posix())
+            if not args.check:
+                dst.write_text(want)
+    for rel, runs in TEST_CODE_COPIES.items():
+        dst = PORT / rel
+        text = want = dst.read_text()
+        for name, first, last in runs:
+            want = splice_runs(want, (TESTS / name).read_text(), ((None, first, last),),
+                               as_test_code)
         if want != text:
             stale.append(dst.relative_to(REPO).as_posix())
             if not args.check:
