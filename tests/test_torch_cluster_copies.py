@@ -37,8 +37,10 @@ PORT = REPO / "zeebe_tpu_torch"
 PORT_MEMBERS = {
     "broker/partition.py": {
         # ``resolve_device`` is imported where the backend's device is
-        # resolved, so that a client or a gateway loads no torch
-        ("ZeebePartition", "__init__"): {"device", "resolve_device"},
+        # resolved, so that a client or a gateway loads no torch; ``owner``
+        # names the stream journal's partition and member on its flush spans
+        ("ZeebePartition", "__init__"): {"device", "resolve_device", "owner"},
+        ("ZeebePartition", "_receive_install_snapshot"): {"owner"},
         ("ZeebePartition", "_transition"): {"device"},
     },
     "broker/broker.py": {
@@ -50,6 +52,8 @@ PORT_MEMBERS = {
         ("InProcessCluster", "add_broker"): {"device", "kernel_backend"},
     },
     "cluster/raft.py": {
+        # the Raft log's partition and member on its flush spans
+        ("RaftNode", "__init__"): {"owner"},
         ("RaftNode", "_start_prevote"):
             "drops the leader when the timer fires, as raft's pre-candidate does: the "
             "reference's kept it and denied every first pre-vote after a leader's death",
@@ -61,6 +65,9 @@ PORT_MEMBERS = {
     },
     "gateway/broker_client.py": {
         ("ClusterRuntime", "__init__"): {"device"},
+        ("ClusterRuntime", "submit"):
+            "the reference's, and the wait for the partition's lock as the request's "
+            "gateway.partition_lock span; gateway.request placed at its real start",
         ("ClusterRuntime", "has_activatable_jobs"):
             "answers True where the partition's lock is held past the peek's second, as "
             "the other runtimes answer for a leader they cannot peek at: the reference's "

@@ -1,10 +1,13 @@
 """The port's engine stack is the reference's, copied; what differs is named.
 
 Every module of the engine stack (``testing/copies.py``'s ``ENGINE_STACK``)
-equals ``as_copied`` of its reference. Every other file of the port with a
-counterpart in the reference either equals it the same way or is named in
-``REWRITTEN`` with the reason; for the profiler's device half and the
-harness (whose one addition is the kernel backend's ``device``) an AST
+equals ``as_copied`` of its reference. The journal, the tracer, the critical
+path and the stream processor are partial copies (the checks of
+``tests/test_torch_cluster_copies.py``): every reference member is in a
+copied run or named in ``PORT_MEMBERS`` here. Every other file of the port
+with a counterpart in the reference either equals it the same way or is
+named in ``REWRITTEN`` with the reason; for the profiler's device half and
+the harness (whose one addition is the kernel backend's ``device``) an AST
 test holds every member they keep to the reference. Also here: the
 kernel-backed harness needs a device where CUDA is missing, both harnesses
 run without JAX, and the profiler's device half on ``torch.cuda`` (CPU
@@ -22,6 +25,12 @@ from pathlib import Path
 import pytest
 import torch
 
+from test_torch_cluster_copies import (
+    check_copied_runs,
+    check_imports,
+    check_member_plus_names,
+    check_members_copied_or_named,
+)
 from test_torch_tables import as_copied
 from zeebe_tpu_torch.observability import profiler as P
 from zeebe_tpu_torch.testing import EngineHarness, MultiPartitionHarness, copies
@@ -46,11 +55,21 @@ REWRITTEN = {
     "testing/__init__.py": "the harness with the kernel backend's device",
     "utils/backend_probe.py": "the killable probe's child asks torch.cuda, not jax.devices()",
     "utils/device_link.py": "the router's card and host are torch devices; link timed on torch",
-    "broker/partition.py": "partial copy: the kernel backend's device (test_torch_cluster_copies)",
+    "journal/journal.py": "partial copy: journal.flush at the flush's start, before its "
+                          "listeners, with the journal's owner (PORT_MEMBERS here)",
+    "observability/tracer.py": "partial copy: the span sites, the clock, the collections' hook "
+                               "(PORT_MEMBERS here)",
+    "observability/critical_path.py": "partial copy: a kernel group's device stage is two "
+                                      "spans, dispatch and device (PORT_MEMBERS here)",
+    "stream/processor.py": "partial copy: a kernel group's stage spans in sequence at their "
+                           "real starts (PORT_MEMBERS here)",
+    "broker/partition.py": "partial copy: the kernel backend's device, the stream journal's "
+                           "owner (test_torch_cluster_copies)",
     "broker/broker.py": "partial copy: BrokerCfg.device, the card count (test_torch_cluster_copies)",
-    "cluster/raft.py": "partial copy: a pre-vote drops the leader (test_torch_cluster_copies)",
-    "gateway/broker_client.py": "partial copy: ClusterRuntime's device and peek "
-                                "(test_torch_cluster_copies)",
+    "cluster/raft.py": "partial copy: a pre-vote drops the leader, the Raft log's owner "
+                       "(test_torch_cluster_copies)",
+    "gateway/broker_client.py": "partial copy: ClusterRuntime's device and peek, the submit's "
+                                "lock wait (test_torch_cluster_copies)",
     "gateway/tcp_runtime.py": "partial copy: TcpClusterRuntime's device (test_torch_standalone)",
     "testing/chaos.py": "partial copy: ChaosHarness's device (test_torch_standalone)",
     "multiproc/supervisor.py": "partial copy: the workers' --device (test_torch_standalone)",
@@ -74,11 +93,76 @@ REWRITTEN = {
 }
 
 
+#: the port's members of each partial copy of the engine stack outside its
+#: copied runs: the names the port adds to the reference's member, or the
+#: reason it is rewritten whole
+PORT_MEMBERS = {
+    "journal/journal.py": {
+        # the (partition, member) named on the journal's flush spans
+        ("SegmentedJournal", "__init__"): {"owner"},
+        ("SegmentedJournal", "flush"):
+            "the reference's, with the journal.flush span starting at the flush's start, "
+            "emitted before the flush listeners run and naming the journal's owner",
+    },
+    "observability/tracer.py": {
+        ("Tracer", "enable"): "the reference's, and the collections' hook installed",
+        ("Tracer", "disable"): "the reference's, and the collections' hook removed",
+    },
+    "observability/critical_path.py": {
+        (None, "_STAGE_EDGE"): "the reference's, and the first chunk's dispatch (the device "
+                               "stage's first span) charged to the device",
+    },
+    "stream/processor.py": {
+        # the stashed speculation's admission start, while tracing is on
+        ("StreamProcessor", "__init__"): {"_spec_begun_at"},
+        ("StreamProcessor", "process_available_batch"):
+            "the reference's, stamping each stage's start while tracing is on",
+        ("StreamProcessor", "_trace_group"):
+            "the group's and the stages' spans at their real starts, in sequence (the first "
+            "chunk's dispatch a stage of its own); overlap an attribute; the collections' "
+            "spans drained",
+    },
+}
+#: imports a partial copy of the engine stack adds to the reference's
+ADDED_IMPORTS = {
+    "journal/journal.py": {
+        "from zeebe_tpu_torch.observability.host_spans import clock_offset_us"},
+    "observability/tracer.py": {"from zeebe_tpu_torch.observability import host_spans"},
+    "observability/critical_path.py": set(),
+    "stream/processor.py": {
+        "from zeebe_tpu_torch.observability.host_spans import clock_offset_us, drain_gc"},
+}
+PARTIAL = sorted(PORT_MEMBERS)
+EXTENDED = [(path, scope, name) for path in PARTIAL
+            for (scope, name), names in PORT_MEMBERS[path].items() if isinstance(names, set)]
+
+
 @pytest.mark.parametrize("path", copies.ENGINE_STACK)
 def test_engine_stack_module_is_a_copy(path):
     ref = (REF / path).read_text()
     port = (PORT / path).read_text()
     assert port == as_copied(ref)
+
+
+@pytest.mark.parametrize("path", PARTIAL)
+def test_engine_copied_runs_are_the_scripts(path):
+    check_copied_runs(path)
+
+
+@pytest.mark.parametrize("path", PARTIAL)
+def test_engine_member_is_copied_or_named(path):
+    check_members_copied_or_named(path, PORT_MEMBERS[path])
+
+
+@pytest.mark.parametrize("path", PARTIAL)
+def test_engine_imports_are_the_references_plus_the_named(path):
+    check_imports(path, ADDED_IMPORTS[path])
+
+
+@pytest.mark.parametrize("path,scope,name", EXTENDED,
+                         ids=[f"{p}:{s or 'module'}.{n}" for p, s, n in EXTENDED])
+def test_engine_member_is_the_references_plus_the_names(path, scope, name):
+    check_member_plus_names(path, scope, name, PORT_MEMBERS[path][(scope, name)])
 
 
 def test_only_the_named_files_differ():

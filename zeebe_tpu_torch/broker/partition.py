@@ -282,7 +282,8 @@ class ZeebePartition:
         self.raft.journal.compact_guard = self._raft_compact_guard
 
         self._stream_dir = self.directory / "stream"
-        self.stream_journal = SegmentedJournal(self._stream_dir)
+        self.stream_journal = SegmentedJournal(self._stream_dir,
+                                               owner=(partition_id, self.raft.member_id))
         self.stream_journal.compact_guard = self._stream_compact_guard
         self.stream = LogStream(self.stream_journal, partition_id, clock=clock_millis)
 
@@ -522,7 +523,7 @@ class ZeebePartition:
         self._record_recovery(_perf_counter() - recovery_start,
                               self.processor.replayed_records)
 
-    # copied from the reference: _finish_leader_recovery .. health
+    # copied from the reference: _finish_leader_recovery .. _provide_install_snapshot
     def _finish_leader_recovery(self) -> None:
         """Replay barrier cleared: the stream re-materialized through the
         raft log end known at election and replay applied it. Processing
@@ -1525,6 +1526,7 @@ class ZeebePartition:
             except (OSError, ValueError):
                 return None
         return (self.raft.snapshot_index, self.raft.snapshot_term, payload)
+    # end of the copy
 
     def _receive_install_snapshot(self, data: bytes) -> None:
         """Follower fell behind the leader's compacted log: replace local state
@@ -1546,7 +1548,8 @@ class ZeebePartition:
         # reset the stream journal past the snapshot and rebuild the vertical
         self.stream_journal.close()
         shutil.rmtree(self._stream_dir, ignore_errors=True)
-        self.stream_journal = SegmentedJournal(self._stream_dir)
+        self.stream_journal = SegmentedJournal(self._stream_dir,
+                                               owner=self.stream_journal.owner)
         # the rebuilt journal must keep the compaction safety guard — losing
         # it here would leave every later compact() on this node unguarded
         self.stream_journal.compact_guard = self._stream_compact_guard
@@ -1565,6 +1568,7 @@ class ZeebePartition:
 
     # -- lifecycle -------------------------------------------------------------
 
+    # copied from the reference: tick .. health
     def tick(self) -> None:
         self.raft.tick()
 

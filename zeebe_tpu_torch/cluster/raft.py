@@ -60,7 +60,6 @@ class RaftRole(enum.Enum):
 class RaftNode:
     """One member of one partition's replication group."""
 
-    # copied from the reference: __init__ .. _last_resort_due
     def __init__(
         self,
         messaging: MessagingService,
@@ -164,7 +163,8 @@ class RaftNode:
         )
 
         self.journal = SegmentedJournal(self.directory / "raft-log",
-                                        max_unflushed_bytes=max_unflushed_bytes)
+                                        max_unflushed_bytes=max_unflushed_bytes,
+                                        owner=(partition_id, self.member_id))
         # "immediate": fsync before acking appends / advancing own match —
         # the reference's default (journal flush-before-ack, SURVEY §2.2);
         # "delayed": fsync on the next tick (reference DelayedFlusher);
@@ -282,6 +282,7 @@ class RaftNode:
 
     # -- persistence ----------------------------------------------------------
 
+    # copied from the reference: _load_meta .. _last_resort_due
     def _load_meta(self) -> None:
         if self._meta_path.exists():
             meta = json.loads(self._meta_path.read_text())

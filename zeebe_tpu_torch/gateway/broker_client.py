@@ -349,7 +349,6 @@ class ClusterRuntime(GatewayRuntimeBase):
 
     # -- request path ----------------------------------------------------------
 
-    # copied from the reference: submit .. _resolve
     def submit(self, partition_id: int, record: Record,
                timeout_s: float = 10.0) -> Record:
         """Write a command to the partition leader, await the engine response
@@ -357,7 +356,9 @@ class ClusterRuntime(GatewayRuntimeBase):
         trace's ROOT span: ``client_write`` returns the command's assigned
         stream position, which IS the trace id the broker-side spans
         (processing, export) key on — the gateway request joins its causal
-        tree with no extra wire fields."""
+        tree with no extra wire fields. Its child ``gateway.partition_lock``
+        is the wait for the partition's lock, from the first try to the
+        acquire that wrote the command (leader misses included)."""
         from zeebe_tpu_torch.broker.partition import BackpressureExceeded
         from zeebe_tpu_torch.observability.tracer import get_tracer
 
@@ -378,10 +379,14 @@ class ClusterRuntime(GatewayRuntimeBase):
             # never had — the same UNAVAILABLE surface as a leaderless one
             self._pending.pop(request_id, None)
             raise NoLeaderError(f"unknown partition {partition_id}")
+        t_wait = time.perf_counter() if traced else 0.0
+        t_locked = 0.0
         while time.time() < deadline:
             # bounded acquire: a stalled partition (held ownership lock) must
             # time this request out, not block the gRPC handler forever
             if lock.acquire(timeout=0.05):
+                if traced:
+                    t_locked = time.perf_counter()
                 try:
                     leader = self._leader_partition(partition_id)
                     if leader is not None:
@@ -414,10 +419,18 @@ class ClusterRuntime(GatewayRuntimeBase):
                          "intent": record.intent.name}
                 if response.is_rejection:
                     attrs["rejection"] = response.rejection_type.name
+                from zeebe_tpu_torch.observability.host_spans import clock_offset_us
+
+                offset = clock_offset_us()
                 tracer.emit(trace_id, "gateway.request", latency, partition_id,
-                            attrs=attrs)
+                            attrs=attrs, start_us=int(t_submit * 1e6 + offset))
+                tracer.emit(trace_id, "gateway.partition_lock", t_locked - t_wait,
+                            partition_id, parent="gateway.request",
+                            attrs={"position": command_position},
+                            start_us=int(t_wait * 1e6 + offset))
         return response
 
+    # copied from the reference: _resolve .. _resolve
     def _resolve(self, response) -> None:
         self._resolve_request(response.request_id, response.record)
     # end of the copy

@@ -34,12 +34,14 @@ import zlib
 from pathlib import Path
 from typing import Callable, Iterator
 
+from zeebe_tpu_torch.observability.host_spans import clock_offset_us
 from zeebe_tpu_torch.observability.tracer import get_tracer as _get_tracer
 from zeebe_tpu_torch.utils import storage_io
 from zeebe_tpu_torch.utils.metrics import REGISTRY as _REGISTRY
 
 # group-flush tracing (singleton mutated in place; one enabled-check per
 # flush when tracing is off)
+# copied from the reference: _TRACER .. _Segment
 _TRACER = _get_tracer()
 
 logger = logging.getLogger("zeebe_tpu_torch.journal")
@@ -498,6 +500,7 @@ class _Segment:
         self._pending_bytes = 0
         self.close()
         self.path.unlink(missing_ok=True)
+# end of the copy
 
 
 class SegmentedJournal:
@@ -514,8 +517,12 @@ class SegmentedJournal:
         max_segment_size: int = 8 * 1024 * 1024,
         flush_interval: float | None = None,
         max_unflushed_bytes: int = 1 << 20,
+        owner: tuple[int, str] | None = None,
     ) -> None:
         self.dir = Path(directory)
+        # the (partition, member) whose journal this is, named on its flush
+        # spans; None for a journal no partition owns
+        self.owner = owner
         self.dir.mkdir(parents=True, exist_ok=True)
         self.name = name
         self.max_segment_size = max_segment_size
@@ -561,6 +568,7 @@ class SegmentedJournal:
         _M_OPEN_TIME.observe(_perf() - start)
         self._update_segment_gauge()
 
+    # copied from the reference: _update_segment_gauge .. _roll_segment
     def _update_segment_gauge(self) -> None:
         n = len(self.segments)
         if n != self._counted_segments:
@@ -698,6 +706,7 @@ class SegmentedJournal:
         self._update_segment_gauge()
         _M_SEGMENT_CREATION.observe(_perf() - start)
         return seg
+    # end of the copy
 
     def flush(self) -> int:
         """fsync the tail segment (the only one that can be dirty: rolling
@@ -706,7 +715,9 @@ class SegmentedJournal:
         JournalMetaStore last-flushed index). The meta write is advisory —
         recovery re-derives state from segment scans — so it is a plain
         8-byte overwrite, not an fsync'd rename, keeping the hot append path
-        at one fsync per flush."""
+        at one fsync per flush. The ``journal.flush`` span (the reference's)
+        starts where the flush starts, ends before the flush listeners run,
+        and names the journal's owner."""
         self._flush_append_metrics()
         covered_bytes = self._unflushed_bytes
         start = _perf()
@@ -724,6 +735,15 @@ class SegmentedJournal:
         elapsed = _perf() - start
         _M_FLUSH_SECONDS.observe(elapsed)
         _M_FLUSH_TIME.observe(elapsed)
+        if _TRACER.enabled:
+            # group-flush span: the durability edge every gated ack waits on
+            # (flushes are group-commit cadence, not per-append — cheap)
+            partition, member = self.owner or (0, "")
+            _TRACER.emit("infra:journal", "journal.flush", elapsed, partition,
+                         attrs={"coveredBytes": covered_bytes, "lastIndex": idx,
+                                "partition": partition, "member": member,
+                                "journal": self.dir.name},
+                         start_us=int(start * 1e6 + clock_offset_us()))
         if slow_flush_listeners and elapsed >= SLOW_FLUSH_THRESHOLD_S:
             for listener in list(slow_flush_listeners):
                 try:
@@ -739,14 +759,9 @@ class SegmentedJournal:
                 listener(max(idx, 0))
             except Exception:  # noqa: BLE001 — ack fan-out must never
                 logger.exception("journal flush listener failed (%s)", self.dir)
-        if _TRACER.enabled:
-            # group-flush span: the durability edge every gated ack waits on
-            # (flushes are group-commit cadence, not per-append — cheap)
-            _TRACER.emit("infra:journal", "journal.flush", elapsed,
-                         attrs={"coveredBytes": covered_bytes,
-                                "lastIndex": idx})
         return idx
 
+    # copied from the reference: maybe_flush .. reset
     def maybe_flush(self) -> int | None:
         """Group-commit flush point: called once per processed group (not per
         append). fsyncs — and returns the covered index — only when there is
@@ -959,8 +974,10 @@ class SegmentedJournal:
         self._update_segment_gauge()
         # invalidate the stale flushed-index marker from the pre-reset log
         self._write_flush_marker(max(next_index - 1, 0))
+    # end of the copy
 
 
+# copied from the reference: read_only_records .. read_only_records
 def read_only_records(directory: str | Path,
                       name: str = "journal") -> Iterator[JournalRecord]:
     """Iterate a journal directory's records WITHOUT opening it for write —
@@ -1000,3 +1017,4 @@ def read_only_records(directory: str | Path,
             prev_last = index
             expected += 1
             offset = end
+# end of the copy

@@ -53,6 +53,7 @@ from pathlib import Path
 
 # the closed edge vocabulary — aggregation reports every edge (zero-filled)
 # so scenario breakdowns are comparable across runs
+# copied from the reference: EDGES .. _EDGE_BY_NAME
 EDGES = ("queue", "coalesce", "replicate", "fsync", "device", "host-execute",
          "reply")
 
@@ -72,17 +73,21 @@ _EDGE_BY_NAME = {
     "processor.reply_release": "reply",
     "gateway.reply": "reply",
 }
+# end of the copy
 
 # group stage → edge, for splitting a group interval's charged time; the
-# overlap stage is excluded (it is an accounting view of the same wall time)
+# device stage is two spans, the first chunk's dispatch and the wait for the
+# device, both device time (the overlap is the group's attribute, no stage)
 _STAGE_EDGE = {
     "processor.stage.decode": "host-execute",
+    "processor.stage.dispatch": "device",
     "processor.stage.device": "device",
     "processor.stage.materialize": "host-execute",
     "processor.stage.append": "host-execute",
     "processor.stage.flush": "fsync",
 }
 
+# copied from the reference: _ROOT_NAMES .. LatencyObservatory
 _ROOT_NAMES = ("gateway.request", "processor.ack")
 
 
@@ -428,3 +433,4 @@ class LatencyObservatory:
             "windowAcks": self.last_window_acks,
             "worstMs": self.last_worst_ms,
         }
+# end of the copy

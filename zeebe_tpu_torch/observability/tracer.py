@@ -7,6 +7,35 @@ always returns the same singleton and ``configure_tracing`` mutates it in
 place, so call sites may cache the reference at construction time and never
 observe a stale tracer.
 
+Span sites, by layer:
+
+- gateway: ``gateway.request`` (a submit, request to response; the root),
+  ``gateway.partition_lock`` (a submit's wait for its partition's lock),
+  ``gateway.ingress``, ``gateway.coalesce_wait``, ``gateway.admission``
+  (the multi-process runtime); ``broker.backpressure_acquire`` and
+  ``broker.command_append`` (the leader's ``client_write``);
+- journal and Raft: ``raft.replicate`` (leader append to quorum commit),
+  ``journal.flush`` (one fsync of one journal, with its ``partition`` and
+  ``member``), ``processor.fsync_wait``;
+- stream processor: ``processor.kernel_group`` and its stages
+  ``processor.stage.{decode,dispatch,device,materialize,append,flush}``
+  (``dispatch`` the first chunk's launch, ``device`` the wait for the
+  device and its rows; the two make the pipeline's device stage),
+  ``processor.command``, ``processor.speculative``,
+  ``processor.backlog_wait``, ``processor.kernel_command`` (a share of
+  its group, not an interval), ``processor.ack``,
+  ``processor.reply_release``; ``kernel.mesh_submit``;
+- exporters: ``exporter.export``;
+- the interpreter: ``runtime.gc`` (each generation-2 collection; see
+  ``host_spans``).
+
+**Clock and start.** A span's ``start_us`` is on ``span.now_us()``, the
+wall clock, which is the clock ``torch.profiler`` writes device activity on
+(``host_spans``). A span starts where its work started: a site that times
+work with ``perf_counter`` passes its start stamp mapped onto that clock
+(``start_us``); ``emit`` without one dates the span back from the moment of
+emission, which is right only where the work ends there.
+
 Three cross-cutting services ride on the tracer besides span emission:
 
 - **append→ack latency**: ``note_append`` stamps a command position at append
@@ -38,6 +67,7 @@ from __future__ import annotations
 import os
 import time
 
+from zeebe_tpu_torch.observability import host_spans
 from zeebe_tpu_torch.observability.span import (
     DeterministicSampler,
     Span,
@@ -52,6 +82,7 @@ from zeebe_tpu_torch.utils.metrics import REGISTRY as _REG
 # exporter director's ExecutionLatencyObserver already serves):
 #   scope=gateway   — request submitted → response received (full round trip)
 #   scope=processor — command appended → step committed + response dispatched
+# copied from the reference: _M_ACK_LATENCY .. _ACK_RESERVOIR_LIMIT
 _M_ACK_LATENCY = _REG.histogram(
     "command_ack_latency",
     "seconds from command submission/append to acknowledgment",
@@ -64,9 +95,11 @@ _APPEND_TABLE_LIMIT = 65536
 _ROOT_TABLE_LIMIT = 131072
 _EXPORT_SEEN_LIMIT = 65536
 _ACK_RESERVOIR_LIMIT = 262144
+# end of the copy
 
 
 class Tracer:
+    # copied from the reference: __slots__ .. __init__
     __slots__ = ("enabled", "collector", "sampler", "_append_t", "_roots",
                  "_export_seen", "_ack_reservoir", "_ack_children")
 
@@ -92,21 +125,27 @@ class Tracer:
             "gateway": _M_ACK_LATENCY.labels("gateway"),
             "processor": _M_ACK_LATENCY.labels("processor"),
         }
+    # end of the copy
 
     # -- lifecycle -------------------------------------------------------------
 
     def enable(self, seed: int = 0, sample_rate: float = 1.0,
                capacity: int = 16384, reset: bool = True) -> None:
+        """The reference's, and the collections' hook installed
+        (``host_spans.GC``): it runs only while tracing is on."""
         if reset:
             self.clear()
         self.sampler = DeterministicSampler(seed=seed, rate=sample_rate)
         if capacity != self.collector.capacity:
             self.collector.resize(capacity)
+        host_spans.GC.install()
         self.enabled = True
 
     def disable(self) -> None:
         self.enabled = False
+        host_spans.GC.remove()
 
+    # copied from the reference: clear .. mark_exported
     def clear(self) -> None:
         self.collector.clear()
         self._append_t.clear()
@@ -204,8 +243,10 @@ class Tracer:
             _evict_oldest_half(seen, _EXPORT_SEEN_LIMIT)
         seen[identity] = None
         return True
+    # end of the copy
 
 
+# copied from the reference: _TRACER .. _configure_from_env
 _TRACER = Tracer()
 
 
@@ -238,6 +279,7 @@ def _configure_from_env() -> None:
     except ValueError:
         rate, seed, capacity = 1.0, 0, 16384
     _TRACER.enable(seed=seed, sample_rate=rate, capacity=capacity)
+# end of the copy
 
 
 _configure_from_env()

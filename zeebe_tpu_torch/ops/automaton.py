@@ -738,10 +738,11 @@ def run_to_completion(tables: DeviceTables, state: dict, max_steps: int = 1000,
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count, every grid-launch count and the
-    cross-group counter sum's count to 0."""
+    cross-group counter sum's count to 0, and forget the calls' geometry."""
     for counts in (kernels.LAUNCHES, kernels.GRID_LAUNCHES, kernels.GROUP_LAUNCHES):
         for name in counts:
             counts[name] = 0
+    kernels.GEOMETRY.clear()
 
 
 def launch_counts() -> dict:
@@ -752,6 +753,19 @@ def grid_launch_counts() -> dict:
     """CUDA grid launches the automaton wrappers enqueued, by path (see
     ``kernels.GRID_LAUNCHES``)."""
     return dict(kernels.GRID_LAUNCHES)
+
+
+def geometry_counts() -> list[dict]:
+    """The automaton wrappers' calls while tracing was on, by geometry (see
+    ``kernels.GEOMETRY``): each geometry's ``path``, KernelConfig ``flags``,
+    the bytes of each table (``tables``) and state array (``state``) it was
+    given, the packed-row bytes it writes (``out_bytes``) and its ``calls``."""
+    return [{"path": path, "flags": dict(zip(kernels.GEOMETRY_FLAGS, flags)),
+             "tables": dict(zip(kernels._TABLE_SPEC, tables)),
+             "state": dict(zip(kernels._STATE_PTRS, state)),
+             "out_bytes": out_bytes, "calls": calls}
+            for (path, flags, tables, state, out_bytes), calls
+            in list(kernels.GEOMETRY.items())]
 
 
 def group_launch_counts() -> dict:

@@ -43,6 +43,10 @@ reference's mesh layout, ``make_state(num_shards=n)``: token ``inst`` values
 local to their block). Every phase of a step is one launch over all shards.
 The counters are one per shard (``[NS]``) or one for all (a 0-d tensor,
 replicated, as ``make_sharded_step`` takes them).
+
+Counts: ``LAUNCHES`` and ``GRID_LAUNCHES`` always; ``GEOMETRY``, each
+wrapper call's geometry, only while the tracer is on (one ``enabled`` read
+per call when it is off).
 """
 
 from __future__ import annotations
@@ -59,6 +63,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from zeebe_tpu_torch.observability.tracer import get_tracer
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "automaton.cu", CSRC / "decision.cu")
@@ -112,10 +118,22 @@ LAUNCHES = {"step": 0, "run_collect": 0, "run_to_completion": 0,
 # "grid" one per run_to_completion on the grid kernel.
 GRID_LAUNCHES = {"fused": 0, "chain": 0, "combine": 0, "grid": 0}
 
+# The automaton wrappers' calls by geometry, counted only while tracing is
+# on: (path, the KernelConfig flags of GEOMETRY_FLAGS, the bytes of each
+# table of _TABLE_SPEC, of each state array of _STATE_PTRS, the packed-row
+# bytes the call writes) -> calls. "fused" and "chain" count each call of
+# run_steps (a chunk, a step, a sharded step), "grid" and "chain" each
+# run_until_quiet; ``automaton.geometry_counts`` reads it.
+GEOMETRY: dict[tuple, int] = {}
+GEOMETRY_FLAGS = ("has_joins", "has_conditions", "has_scopes", "has_mi")
+
 # Launches of a grouped mesh's cross-group counter sum (``combine_groups``,
 # ``k_combine_groups``): one per sharded step of a mesh of several launch
 # groups (``parallel/mesh.py``).
 GROUP_LAUNCHES = {"combine_groups": 0}
+
+
+_TRACER = get_tracer()
 
 
 class KernelBuildError(RuntimeError):
@@ -577,11 +595,24 @@ def _pick_completion(path: str | None) -> str:
     return path
 
 
+def _count_geometry(path: str, tables, state: dict, config,
+                    out: torch.Tensor | None) -> None:
+    """One wrapper call in ``GEOMETRY`` (the caller checks the tracer)."""
+    key = (path, tuple(bool(getattr(config, f)) for f in GEOMETRY_FLAGS),
+           tuple(getattr(tables, n).numel() * getattr(tables, n).element_size()
+                 for n in _TABLE_SPEC),
+           tuple(state[n].numel() * state[n].element_size() for n in _STATE_PTRS),
+           out.numel() * out.element_size() if out is not None else 0)
+    GEOMETRY[key] = GEOMETRY.get(key, 0) + 1
+
+
 def _enqueue(tables, state: dict, n_steps: int, config, mode: int,
              out: torch.Tensor | None, row_len: int, num_shards: int, sharded: bool,
              path: str | None) -> _Run:
     """Allocate and enqueue ``n_steps`` lock-steps by the chosen path."""
     path = _pick(path, state["elem"].shape[0] // num_shards)
+    if _TRACER.enabled:
+        _count_geometry(path, tables, state, config, out)
     if path == "fused":
         run = allocate(tables, state, config, num_shards, sharded)
         launch_fused(run, n_steps, mode, out, row_len)
@@ -678,6 +709,8 @@ def run_until_quiet(tables, state: dict, max_steps: int, config, auto_jobs: bool
     no-ops once it drops)."""
     path = _pick_completion(path)
     bits = MODE_COMPLETION | (MODE_AUTO_JOBS if auto_jobs else 0)
+    if _TRACER.enabled:
+        _count_geometry(path, tables, state, config, None)
     if path == "grid":
         run = allocate(tables, state, config)
         launch_complete(run, max_steps, bits)

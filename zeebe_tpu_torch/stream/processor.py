@@ -33,6 +33,7 @@ from typing import Callable
 
 from zeebe_tpu_torch.journal.journal import CorruptedJournalError
 from zeebe_tpu_torch.logstreams import LogAppendEntry, LoggedRecord, LogStream
+from zeebe_tpu_torch.observability.host_spans import clock_offset_us, drain_gc
 from zeebe_tpu_torch.protocol import Record, RecordType, RejectionType, ValueType, rejection
 from zeebe_tpu_torch.state.tiering import ColdCorruptionError
 
@@ -41,6 +42,7 @@ from zeebe_tpu_torch.state.tiering import ColdCorruptionError
 #: the matching repair (truncate/re-materialize/transition) — converting
 #: them into FAILED phases or command rejections would bury a repairable
 #: disk fault
+# copied from the reference: _STORAGE_CORRUPTION .. StreamProcessorMode
 _STORAGE_CORRUPTION = (CorruptedJournalError, ColdCorruptionError)
 from zeebe_tpu_torch.state import ColumnFamilyCode, ZbDb
 from zeebe_tpu_torch.stream.api import (
@@ -79,6 +81,7 @@ class StreamProcessorMode(enum.Enum):
 
     PROCESSING = "processing"
     REPLAY = "replay"
+# end of the copy
 
 
 class StreamProcessor:
@@ -275,6 +278,9 @@ class StreamProcessor:
         # state_epoch, dispatch_stamp); the next round consumes it only if
         # nothing invalidated the admission snapshot in between.
         self._spec_group: tuple | None = None
+        # traced: the stashed group's admission start (0.0 untraced), taken
+        # with the stash
+        self._spec_begun_at = 0.0
         # bumped by anything that mutates engine state outside the group
         # pipeline itself (a post-commit task with its own transaction);
         # sequential commands are covered by the reader-position check
@@ -357,6 +363,7 @@ class StreamProcessor:
 
     # -- bookkeeping ---------------------------------------------------------
 
+    # copied from the reference: _load_last_processed .. _iter_candidate_commands
     def _load_last_processed(self) -> int:
         with self.db.transaction():
             pos = self._positions.get(("last",))
@@ -608,6 +615,7 @@ class StreamProcessor:
                     return
                 first = False
                 yield logged
+    # end of the copy
 
     def process_available_batch(self) -> int:
         """Process a group of kernel-eligible commands in one device run and
@@ -624,6 +632,9 @@ class StreamProcessor:
         import time as _time
 
         group_start = _time.perf_counter()
+        # the enabled flag once, for the whole group: its spans' stamps are
+        # taken only when it is set
+        traced = self._tracer.enabled
         from zeebe_tpu_torch.engine.burst_templates import PreparedBurst
 
         pipeline = self._m_pipeline
@@ -636,8 +647,12 @@ class StreamProcessor:
         # validation (or a round that fails outright) can never be consumed
         # against state its admission snapshot no longer matches
         spec, self._spec_group = self._spec_group, None
+        spec_begun, self._spec_begun_at = self._spec_begun_at, 0.0
         spec_next = None
         spec_dispatched_at = 0.0
+        # traced: begin_group's start and return (a consumed speculation's
+        # in the round that dispatched it)
+        begun_at = begin_end = 0.0
         # out-of-transaction drain point: deferred groups carrying post-commit
         # tasks (skipped by the in-transaction overlap drain below) go out here
         self._run_deferred_effects()
@@ -654,6 +669,7 @@ class StreamProcessor:
                         # opened over, nothing processed or mutated since
                         pending = pg
                         spec_dispatched_at = t_disp
+                        begun_at, begin_end = spec_begun, t_disp
                         self._m_spec["consumed"].inc()
                     else:
                         self._m_spec["discarded"].inc()
@@ -667,8 +683,16 @@ class StreamProcessor:
                             self._trace_speculative(expected_pos, t_disp,
                                                     "discarded")
                 if pending is None:
+                    if traced:
+                        begun_at = _time.perf_counter()
                     pending = self.kernel_backend.begin_group(
                         self._iter_candidate_commands())
+                    if traced:
+                        begin_end = _time.perf_counter()
+                # traced: the first chunk's dispatch time, before the fetch
+                # adds to it
+                dispatched = (pending.device_elapsed
+                              if traced and pending is not None else 0.0)
                 # the device is computing the first chunk: run the previous
                 # group's deferred host work in the gap — the overlap window
                 # the dispatch-overlap gauge measures
@@ -677,6 +701,7 @@ class StreamProcessor:
                 overlap = _time.perf_counter() - t_overlap
                 cmds, builders = self.kernel_backend.finish_group(
                     pending, ProcessingResultBuilder)
+                finished_at = _time.perf_counter() if traced else 0.0
                 if not cmds:
                     return 0
                 # speculate wave k+1 BEFORE this wave's host tail: state is
@@ -685,6 +710,7 @@ class StreamProcessor:
                 # the append/commit/fsync work below. Stays local until the
                 # commit succeeds — a rollback discards it with the overlay.
                 if self._speculation_enabled:
+                    spec_begun = _time.perf_counter() if traced else 0.0
                     spec_next = self._maybe_speculate(cmds[-1].position + 1)
                 t_append = _time.perf_counter()
                 try:
@@ -739,6 +765,7 @@ class StreamProcessor:
         # the commit succeeded: the speculative admission's state snapshot is
         # now THE committed state — promote the stash for the next round
         self._spec_group = spec_next
+        self._spec_begun_at = spec_begun if spec_next is not None else 0.0
         # kernel-path accounting AFTER the commit: a rolled-back group that
         # re-admits next pump must not count twice (coverage/parity ruler)
         self.kernel_backend.note_group_success(pending)
@@ -747,7 +774,6 @@ class StreamProcessor:
         # command / idle boundary, whichever comes first). Ack notes are
         # taken HERE (commit time) because the flush below may drain the
         # entry synchronously — gated notes must already ride it.
-        traced = self._tracer.enabled
         notes = self._take_ack_notes(cmds) if traced else None
         self._deferred_effects.append(
             (self.last_written_position, builders,
@@ -760,7 +786,8 @@ class StreamProcessor:
         pipeline["device"].observe(pending.device_elapsed)
         pipeline["materialize"].observe(pending.t_materialize)
         self._m_batched.inc(len(cmds))
-        elapsed = _time.perf_counter() - group_start
+        group_end = _time.perf_counter()
+        elapsed = group_end - group_start
         self._m_latency.observe(elapsed)
         self._m_batch_commands.observe(len(cmds))
         self._m_batch_duration.observe(elapsed)
@@ -780,13 +807,20 @@ class StreamProcessor:
             if spec_dispatched_at:
                 self._trace_speculative(cmds[0].position, spec_dispatched_at,
                                         "consumed")
-            self._trace_group(cmds, elapsed, {
-                "decode": pending.t_admit, "device": pending.device_elapsed,
-                "materialize": pending.t_materialize, "append": append_dur,
-                "flush": flush_dur, "overlap": overlap,
-            }, notes)
+            stages = [
+                ("device", t_overlap + overlap, pending.device_elapsed - dispatched),
+                ("materialize", finished_at - pending.t_materialize, pending.t_materialize),
+                ("append", t_append, append_dur),
+                ("flush", t_flush, flush_dur),
+            ]
+            if begun_at:  # 0.0: a speculation dispatched while tracing was off
+                stages[:0] = [("decode", begun_at, pending.t_admit),
+                              ("dispatch", begin_end - dispatched, dispatched)]
+            self._trace_group(cmds, elapsed, (min(begun_at or group_start, group_start),
+                                              group_end), stages, overlap, notes)
         return len(cmds)
 
+    # copied from the reference: _trace_speculative .. _release_acks
     def _trace_speculative(self, first_pos: int, t_disp: float,
                            outcome: str) -> None:
         """One span per speculative dispatch, emitted exactly once at
@@ -942,39 +976,49 @@ class StreamProcessor:
                                 attrs={"position": position})
             if enabled and on_ack is not None:
                 on_ack(trace_id, latency)
+    # end of the copy
 
     def _trace_group(self, cmds: list[LoggedRecord], elapsed: float,
-                     stages: dict[str, float],
-                     notes: list[tuple] | None) -> None:
-        """Spans for one kernel group: a group span with one child per
-        pipeline stage (the per-trace view of the stream_processor_pipeline_*
-        histograms), a backlog-wait span per sampled command (append → wave
-        start, positioned at its REAL interval so the critical-path sweep
+                     window: tuple[float, float],
+                     stages: list[tuple[str, float, float]],
+                     overlap: float, notes: list[tuple] | None) -> None:
+        """Spans for one kernel group: a group span over its real interval
+        (``window``, perf_counter stamps; a consumed speculation's starts at
+        its admission in the round that dispatched it) carrying ``overlap``
+        (the host work run while the first chunk computed) as an attribute,
+        and one child per pipeline stage at its real start, in sequence
+        (``stages``: the stage, its start stamp, its seconds) — the
+        per-trace view of the stream_processor_pipeline_* histograms, whose
+        device stage is here two: ``dispatch``, the first chunk's launch at
+        the end of admission, and ``device``, the wait for the device and
+        its rows after the overlap; a backlog-wait span per sampled command
+        (append → the group's start, at its REAL interval so the critical-path sweep
         charges it as queue time), plus a latency-attributed span per
         sampled command — Canopy-style: the group's wall time split evenly
-        across its commands. Ungated acks release here; gated acks release
-        from the covering-fsync drain. Only called from the live
-        PROCESSING path."""
-        import time as _time
-
-        from zeebe_tpu_torch.observability.span import now_us as _now_us
-
+        across its commands. Then the collections the gc hook holds.
+        Ungated acks release here; gated acks release from the
+        covering-fsync drain. Only called from the live PROCESSING path."""
         tracer = self._tracer
         pid = self.log_stream.partition_id
-        now = _time.perf_counter()
-        anchor_us = _now_us()
+        offset = clock_offset_us()
+        group_start, group_end = window
         group_trace = f"{pid}:g{cmds[0].position}"
         # Group spans bypass head sampling (see _trace_speculative): ~one
         # span bundle per wave, required by every sampled command's
         # interval substitution.
         if tracer.enabled:
-            tracer.emit(group_trace, "processor.kernel_group", elapsed, pid,
+            tracer.emit(group_trace, "processor.kernel_group", group_end - group_start, pid,
                         attrs={"commands": len(cmds),
                                "firstPosition": cmds[0].position,
-                               "lastPosition": cmds[-1].position})
-            for stage, dur in stages.items():
-                tracer.emit(group_trace, f"processor.stage.{stage}", dur, pid,
-                            parent="processor.kernel_group")
+                               "lastPosition": cmds[-1].position,
+                               "overlapUs": int(overlap * 1e6)},
+                        start_us=int(group_start * 1e6 + offset))
+            for stage, start, dur in stages:
+                if dur > 0:
+                    tracer.emit(group_trace, f"processor.stage.{stage}", dur, pid,
+                                parent="processor.kernel_group",
+                                start_us=int(start * 1e6 + offset))
+            drain_gc(tracer)
         share = elapsed / len(cmds)
         by_position = ({note[1]: note for note in notes} if notes else {})
         for cmd in cmds:
@@ -986,13 +1030,13 @@ class StreamProcessor:
             rec = cmd.record
             t_append = note[2] if note is not None else None
             if t_append is not None:
-                backlog = (now - elapsed) - t_append
+                backlog = group_start - t_append
                 if backlog > 0:
                     tracer.emit(
                         trace_id, "processor.backlog_wait", backlog, pid,
                         parent="processor.ack",
                         attrs={"position": cmd.position},
-                        start_us=anchor_us - int((now - t_append) * 1e6))
+                        start_us=int(t_append * 1e6 + offset))
             tracer.emit(trace_id, "processor.kernel_command", share, pid,
                         attrs={"position": cmd.position,
                                "valueType": rec.value_type.name,
@@ -1002,6 +1046,7 @@ class StreamProcessor:
         if notes and not self._ack_gated:
             self._release_acks(notes)
 
+    # copied from the reference: _emit_group_effects .. run_until_idle
     def _emit_group_effects(self, builders: list) -> None:
         from zeebe_tpu_torch.engine.burst_templates import PreparedBurst
 
@@ -1342,3 +1387,4 @@ class StreamProcessor:
         # acks are flush-gated, the covering group-commit fsync) go out now
         self._flush_deferred_effects()
         return steps
+    # end of the copy

@@ -65,10 +65,15 @@ generator and the DMN fixtures), written as the partial copies below are,
 with ``TEST_CODE_CALLS`` (``pytest.fail`` raised as an ``AssertionError``).
 
 The files of ``PARTIAL_COPIES`` are part copy, part rewrite:
-``engine/kernel_backend.py`` (its device members), the partition, the
-broker, Raft (a pre-vote's dropped leader, and the election timer of a
-member that can win where a vote's requester cannot), the gateway's
-cluster runtimes, the chaos harness and the worker supervisor (the
+``engine/kernel_backend.py`` (its device members), the journal, the
+tracer and the stream processor (spans at the real start of their work on
+the device trace's clock, the journal's owner on its flush spans, the
+collections' hook), the critical path (a kernel group's device stage as
+its two spans), the partition, the
+broker, Raft (a pre-vote's dropped leader, the election timer of a
+member that can win where a vote's requester cannot, and its journal's
+owner), the gateway's
+cluster runtimes (the partition lock's wait as a span), the chaos harness and the worker supervisor (the
 kernel backend's ``device`` they pass on), the worker's
 and the standalone's entry points (``--device`` and the card guard),
 the multi-process gateway runtime (its leader routing by term), the
@@ -116,11 +121,11 @@ ENGINE_STACK = (
     "utils/__init__.py",
     "state/db.py", "state/durable.py", "state/request_dedupe.py", "state/snapshot.py",
     "state/tiering.py", "state/__init__.py",
-    "journal/journal.py", "journal/__init__.py",
+    "journal/__init__.py",
     "logstreams/log_stream.py", "logstreams/__init__.py",
-    "observability/span.py", "observability/tracer.py", "observability/timeseries.py",
+    "observability/span.py", "observability/timeseries.py",
     "observability/flight_recorder.py", "observability/lineage.py",
-    "observability/critical_path.py", "testing/evidence.py", "observability/alerts.py",
+    "testing/evidence.py", "observability/alerts.py",
     "testing/chaos_disk.py",
     "observability/auditor.py", "observability/__init__.py",
     "exporters/api.py", "exporters/recording.py", "exporters/director.py",
@@ -133,7 +138,7 @@ ENGINE_STACK = (
     "engine/user_task.py", "engine/decision.py", "engine/distribution.py",
     "engine/modification.py", "engine/burst_templates.py", "engine/bpmn.py",
     "engine/processors.py", "engine/engine.py", "engine/__init__.py",
-    "stream/api.py", "stream/processor.py", "stream/__init__.py",
+    "stream/api.py", "stream/__init__.py",
 )
 
 CLUSTER_STACK = (
@@ -299,10 +304,33 @@ KERNEL_BACKEND_RUNS = (
 #: are the port's, each the reference's with the kernel backend's device
 PARTIAL_COPIES = {
     KERNEL_BACKEND: KERNEL_BACKEND_RUNS,
+    "journal/journal.py": (
+        (None, "_TRACER", "_Segment"),
+        ("SegmentedJournal", "_update_segment_gauge", "_roll_segment"),
+        ("SegmentedJournal", "maybe_flush", "reset"),
+        (None, "read_only_records", "read_only_records"),
+    ),
+    "observability/tracer.py": (
+        (None, "_M_ACK_LATENCY", "_ACK_RESERVOIR_LIMIT"),
+        ("Tracer", "__slots__", "__init__"),
+        ("Tracer", "clear", "mark_exported"),
+        (None, "_TRACER", "_configure_from_env"),
+    ),
+    "observability/critical_path.py": (
+        (None, "EDGES", "_EDGE_BY_NAME"),
+        (None, "_ROOT_NAMES", "LatencyObservatory"),
+    ),
+    "stream/processor.py": (
+        (None, "_STORAGE_CORRUPTION", "StreamProcessorMode"),
+        ("StreamProcessor", "_load_last_processed", "_iter_candidate_commands"),
+        ("StreamProcessor", "_trace_speculative", "_release_acks"),
+        ("StreamProcessor", "_emit_group_effects", "run_until_idle"),
+    ),
     "broker/partition.py": (
         (None, "DEFAULT_SNAPSHOT_PERIOD_MS", "_RaftWriter"),
         ("ZeebePartition", "_on_raft_commit", "_on_role_change"),
-        ("ZeebePartition", "_finish_leader_recovery", "health"),
+        ("ZeebePartition", "_finish_leader_recovery", "_provide_install_snapshot"),
+        ("ZeebePartition", "tick", "health"),
     ),
     "broker/broker.py": (
         (None, "INTER_PARTITION_TOPIC", "COMMAND_API_TOPIC"),
@@ -316,14 +344,14 @@ PARTIAL_COPIES = {
     ),
     "cluster/raft.py": (
         (None, "HEARTBEAT_INTERVAL_MS", "RaftRole"),
-        ("RaftNode", "__init__", "_last_resort_due"),
+        ("RaftNode", "_load_meta", "_last_resort_due"),
         ("RaftNode", "_start_election", "_start_election"),
         ("RaftNode", "_on_vote_response", "committed_entries"),
     ),
     "gateway/broker_client.py": (
         (None, "logger", "GatewayRuntimeBase"),
         ("ClusterRuntime", "_partition_guard", "cluster_status"),
-        ("ClusterRuntime", "submit", "_resolve"),
+        ("ClusterRuntime", "_resolve", "_resolve"),
     ),
     "gateway/tcp_runtime.py": (
         (None, "GATEWAY_RESPONSE_TOPIC", "JOBS_AVAILABLE_TOPIC"),
