@@ -240,7 +240,13 @@ launch, phase 5 that run_to_completion was one grid launch. Beside them:
   phase 4 groups' device-loop and slice transitions/s, and a lock-step and
   a chunk at T = 8192, 16384, 32768 and 131072 (the shape rule's
   threshold, ``kernels.FUSED_MAX_TOKENS``, lies where the chain starts to
-  win).
+  win);
+- the shapes phase holds the fused chunk's block shape (one block per
+  shard) and its cluster shape byte-equal to the plain version at T = 64,
+  128, 256, 512 and 1024 with every serving set, and times one launch of
+  each in turns (cluster, block, block, cluster) by the profiler: the
+  largest T up to which the block shape wins is the threshold
+  ``kernels.FUSED_BLOCK_MAX_TOKENS`` is set from.
 
 Imports neither JAX nor the JAX package. Launch counts are zeroed right
 before each main path runs (phase 4 for step and run_collect, phase 5 for
@@ -1186,6 +1192,119 @@ def phase_ab(serving: dict, geo: dict, slice_info: dict, rng, dev, card: str) ->
     for key in turns[0]:
         log(f"  {key}: {[round(r[key], 6) if isinstance(r[key], float) else r[key] for r in turns]}")
     return {"turns": turns}
+
+
+# the serving sets, and the fused chunk's shape sweep: T per shard, where
+# the block shape (one block per shard) is held against the cluster
+SHAPE_SETS = {"one_task": lambda: [W.one_task()],
+              "exclusive_chain": lambda: [W.exclusive_chain()],
+              "fork_join": lambda: [W.fork_join()], "ten_tasks": lambda: [W.ten_tasks()],
+              "subprocess_boundary": lambda: [W.subprocess_boundary()],
+              "mixed": W.mixed_definitions}
+SHAPE_SWEEP = (64, 128, 256, 512, 1024)
+SHAPE_TURNS = ("cluster", "block", "block", "cluster")
+
+
+def shape_groups(T: int, rng, dev) -> dict:
+    """Each serving set's group at T token slots (I by the group rule: T
+    over the power of two of the set's width) as the start states of two
+    chunks: the fresh group (its creations), and the group after its first
+    chunk and job wave (its completions)."""
+    out = {}
+    for name, models in SHAPE_SETS.items():
+        tables = compile_tables([transform(m) for m in models()])
+        I = max(1, T // kb._pow2(max(tables.token_width, 1)))
+        state, _ = group_setup(tables, I, T, rng, dev)
+        dt = A.DeviceTables.from_numpy(tables, dev)
+        config = tables.kernel_config
+        after, _ = A.run_collect_plain(dt, state, n_steps=8, config=config)
+        jobs = kb.parked_jobs(tables, after)
+        if jobs.size:
+            after = A.complete_jobs(after, jobs)
+        out[name] = (dt, config, (state, after))
+    return out
+
+
+def shape_chunk(dt, state: dict, config, shape: str):
+    """run_collect forced onto one shape of the fused chunk."""
+    return kernels.run_steps(dt, state, 8, config, auto_jobs=False, emit_events=True,
+                             mode="collect", path="fused", shape=shape)
+
+
+def fused_launch_us(groups: dict, shape: str, reps: int) -> float | None:
+    """Device microseconds of one fused chunk launch of ``shape`` from
+    ``torch.profiler``: the mean over the traced launches of ``reps`` from
+    each start state of every group of ``shape_groups`` (a session's trace
+    may miss launches; None when it shows none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = [(dt, config, st) for dt, config, states in groups.values() for st in states]
+    for dt, config, st in calls:
+        shape_chunk(dt, st, config, shape)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for dt, config, st in calls:
+                shape_chunk(dt, st, config, shape)
+        torch.cuda.synchronize()
+    ours = [e for e in prof.key_averages() if "k_chunk" in e.key
+            and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.device_time_total for e in ours)
+    launches = sum(e.count for e in ours)
+    return total_us / launches if launches and total_us > 0 else None
+
+
+def phase_fused_shapes(rng, dev, card: str, reps: int = 25) -> dict:
+    """The fused chunk's two shapes at T = 64 ... 1024 token slots a shard
+    (``SHAPE_SWEEP``), with each serving set's group at the group rule's I:
+    both shapes byte-equal to the plain version on a creation and a
+    completion chunk, then in turns (cluster, block, block, cluster) the
+    device time of one launch from the profiler, over every set. The
+    threshold is the largest T up to which the block shape wins at every T
+    (each shape's mean over its turns); ``kernels.FUSED_BLOCK_MAX_TOKENS``
+    is set from it. A trace that shows no launch leaves the times not
+    measured."""
+    t0 = time.perf_counter()
+    A.reset_launch_counts()
+    table = {}
+    for T in SHAPE_SWEEP:
+        groups = shape_groups(T, rng, dev)
+        for name, (dt, config, states) in groups.items():
+            for st in states:
+                want_state, want_rows = A.run_collect_plain(dt, st, n_steps=8, config=config)
+                for shape in kernels.FUSED_SHAPE_NAMES:
+                    got_state, got_rows = shape_chunk(dt, st, config, shape)
+                    if max(max_abs_err({"rows": got_rows}, {"rows": want_rows}),
+                           max_abs_err(got_state, want_state)):
+                        raise AssertionError(f"the {shape} shape differs from plain at T={T} "
+                                             f"({name})")
+        table[T] = [fused_launch_us(groups, shape, reps) for shape in SHAPE_TURNS]
+    counts = A.fused_shape_counts()
+    if not counts["block"] or not counts["cluster"]:
+        raise AssertionError(f"phase shapes: a shape never launched: {counts}")
+    log(f"phase shapes [{card}] turns {list(SHAPE_TURNS)}, us per fused launch "
+        f"(torch.profiler, {reps} launches from a creation and a completion chunk of each "
+        f"of {len(SHAPE_SETS)} sets): "
+        + "; ".join(f"T={T} {[None if us is None else round(us, 3) for us in turns]}"
+                    for T, turns in table.items()))
+    if any(us is None for turns in table.values() for us in turns):
+        log(f"phase shapes [{card}]: a trace showed no launch: the threshold is not measured; "
+            f"launches by shape {counts}; {time.perf_counter() - t0:.1f} s")
+        return {"table": table, "threshold": None}
+    means = {T: {shape: sum(us for turn, us in zip(SHAPE_TURNS, turns) if turn == shape)
+                 / SHAPE_TURNS.count(shape) for shape in kernels.FUSED_SHAPE_NAMES}
+             for T, turns in table.items()}
+    threshold = None
+    for T in SHAPE_SWEEP:
+        if means[T]["block"] >= means[T]["cluster"]:
+            break
+        threshold = T
+    log(f"phase shapes [{card}]: the block shape wins up to T={threshold} "
+        f"(kernels.FUSED_BLOCK_MAX_TOKENS = {kernels.FUSED_BLOCK_MAX_TOKENS}); means "
+        + "; ".join(f"T={T} block {m['block']:.3f} cluster {m['cluster']:.3f}"
+                    for T, m in means.items())
+        + f"; launches by shape {counts}; {time.perf_counter() - t0:.1f} s")
+    return {"table": table, "means": means, "threshold": threshold}
 
 
 def sharded_timings(info: dict) -> dict:
@@ -3833,6 +3952,7 @@ def main() -> int:
     mesh = phase_mesh_slice(rng, dev, card)
     phase_repeat(timing, mesh["geo"], card)
     ab = phase_ab(timing, mesh["geo"], slice_info, rng, dev, card)
+    phase_fused_shapes(rng, dev, card)
     stiming = sharded_timings(sharded)
     timing.update(stiming)
     worst.update(sharded["worst"])

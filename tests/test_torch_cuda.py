@@ -652,6 +652,124 @@ def test_fused_resources(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the fused chunk's two shapes: one block per small shard, or a cluster
+
+SHAPE_SETS = {**{k: WORKLOADS[k] for k in ("one_task", "exclusive_chain", "fork_join",
+                                           "subprocess_boundary", "mixed")},
+              "ten_tasks": lambda: [W.ten_tasks()]}
+
+
+def _shape_setup(name: str, T: int, seed: int, device):
+    """A group of the set at T token slots, with the instances the group
+    rule gives T (T over the pow2 of the set's width)."""
+    tables = compile_tables([transform(m) for m in SHAPE_SETS[name]()])
+    I = max(1, T // kb._pow2(max(tables.token_width, 1)))
+    rng = np.random.default_rng(seed)
+    def_of = rng.integers(0, tables.num_definitions, I).astype(np.int32)
+    slots = rng.integers(-5, 40, (I, tables.num_slots)).astype(np.float64)
+    state = A.make_state(tables, I, def_of, initial_slots=slots, token_capacity=T,
+                         device=device)
+    return tables, A.DeviceTables.from_numpy(tables, device), state
+
+
+@pytest.mark.parametrize("T", [8, 64, kernels.FUSED_BLOCK_MAX_TOKENS])
+@pytest.mark.parametrize("name", sorted(SHAPE_SETS))
+def test_both_fused_shapes_match_plain(cuda, name, T):
+    """The block and the cluster shape forced at the same T, chunk by chunk
+    with job waves: packed rows, state and counters byte-equal to the plain
+    version, one launch a chunk in the forced shape."""
+    tables, dt, state = _shape_setup(name, T, seed=T, device=cuda)
+    config = tables.kernel_config
+    got = {"block": state, "cluster": state}
+    ps = state
+    for _ in range(10):
+        ps, prows = A.run_collect_plain(dt, ps, n_steps=8, config=config)
+        for shape, ks in got.items():
+            A.reset_launch_counts()
+            got[shape], krows = kernels.run_steps(dt, ks, 8, config, auto_jobs=False,
+                                                  emit_events=True, mode="collect",
+                                                  shape=shape)
+            assert A.fused_shape_counts() == {"block": 0, "cluster": 0, shape: 1}
+            assert torch.equal(krows.cpu(), prows.cpu()), shape
+            _assert_state_equal(got[shape], ps)
+        jobs = _waiting(tables.kernel_op, ps)
+        if jobs.size:
+            got = {shape: A.complete_jobs(ks, jobs) for shape, ks in got.items()}
+            ps = A.complete_jobs(ps, jobs)
+
+
+@pytest.mark.parametrize("seed", RG.spread(8))
+def test_random_graphs_take_the_block_shape(cuda, seed):
+    """The random-graph generator's seeds at the small bucket (I = 64) take
+    the block shape by the rule, chunk by chunk with job waves, byte-equal
+    to the plain version and to the forced cluster."""
+    tables, dt, state = RG.seed_group(seed, 64, cuda)
+    T = state["elem"].shape[0]
+    assert kernels.fused_shape(T, 64) == "block"
+    config = tables.kernel_config
+    ks = cs = ps = state
+    for _ in range(12):
+        A.reset_launch_counts()
+        ks, krows = A.run_collect(dt, ks, n_steps=8, config=config)
+        assert A.fused_shape_counts() == {"block": 1, "cluster": 0}
+        cs, crows = kernels.run_steps(dt, cs, 8, config, auto_jobs=False, emit_events=True,
+                                      mode="collect", shape="cluster")
+        ps, prows = A.run_collect_plain(dt, ps, n_steps=8, config=config)
+        assert torch.equal(krows.cpu(), prows.cpu()) and torch.equal(crows.cpu(), prows.cpu())
+        _assert_state_equal(ks, ps)
+        _assert_state_equal(cs, ps)
+        jobs = kb.parked_jobs(tables, ps)
+        if jobs.size:
+            ks, cs, ps = (A.complete_jobs(x, jobs) for x in (ks, cs, ps))
+
+
+@pytest.mark.parametrize("shape", [None, "block", "cluster"])
+def test_sharded_collect_of_three_small_shards(cuda, shape):
+    """NS = 3 small shards (I = 128 each): NS blocks or NS clusters in one
+    launch a chunk, byte-equal to the plain sharded collect."""
+    registry = _shard_registry()
+    dt = registry.device_tables_for(cuda)
+    config = registry.tables.kernel_config
+    host, I, T = MR.stack_requests(_shard_requests(registry, dt, 3), 3)
+    want = shape or "block"
+    assert kernels.fused_shape(T, I) == "block"
+    ks = ps = M.shard_state(host, M.make_mesh(3, cuda))
+    for _ in range(10):
+        A.reset_launch_counts()
+        ks, krows = kernels.run_steps(dt, ks, 8, config, auto_jobs=False, emit_events=True,
+                                      mode="collect", num_shards=3, sharded=True,
+                                      shape=shape)
+        assert A.fused_shape_counts() == {"block": 0, "cluster": 0, want: 1}
+        assert A.grid_launch_counts() == {"fused": 1, "chain": 0, "combine": 0, "grid": 0}
+        ps, prows = MR.sharded_collect_plain(dt, ps, 8, 3, config)
+        assert torch.equal(krows.cpu(), prows.cpu())
+        _assert_state_equal(ks, ps)
+        waiting = []
+        for s in range(3):
+            local = {k: ks[k].chunk(3)[s] for k in ("phase", "elem", "inst", "def_of")}
+            waiting += (s * T + _waiting(registry.tables.kernel_op, local)).tolist()
+        if waiting:
+            ks, ps = A.complete_jobs(ks, waiting), A.complete_jobs(ps, waiting)
+
+
+def test_fused_shape_counts_one_launch_a_chunk(cuda):
+    """The small bucket's chunk is one block-shape launch, the large
+    bucket's one cluster launch; a step and a sharded step likewise."""
+    for I, shape in ((64, "block"), (2048, "cluster")):
+        tables, dt, state = _setup("mixed", I, None, seed=29, device=cuda)
+        config = tables.kernel_config
+        A.reset_launch_counts()
+        A.run_collect(dt, state, n_steps=8, config=config)
+        A.step(dt, state, config=config)
+        assert A.fused_shape_counts() == {"block": 0, "cluster": 0, shape: 2}
+        assert A.grid_launch_counts() == {"fused": 2, "chain": 0, "combine": 0, "grid": 0}
+    stables, sdt, sstate = _sharded_state(3, cuda, False)
+    A.reset_launch_counts()
+    M.make_sharded_step(M.make_mesh(3, cuda), config=stables.kernel_config)(sdt, sstate)
+    assert A.fused_shape_counts() == {"block": 1, "cluster": 0}
+
+
+# ---------------------------------------------------------------------------
 # the grid kernel (run_to_completion in one cooperative launch)
 
 

@@ -1,15 +1,17 @@
 """The fused chunk's routing, on the CPU (no card needed).
 
-The fused chunk (one thread-block cluster per shard, one launch per chunk)
-and the chain (one launch per phase) compute the same function; which one a
-call takes is a pure function of the shard's token slots (``choose_path``).
-These tests hold the shape rule, the forcing keyword, the counters and the
-CPU route; the card's tests (``test_torch_cuda.py``) hold both paths
-byte-equal to the plain version.
+The fused chunk (one launch per chunk) and the chain (one launch per
+phase) compute the same function; which one a call takes is a pure
+function of the shard's token slots (``choose_path``), and so is the fused
+chunk's shape, one block or a thread-block cluster per shard
+(``fused_shape``). These tests hold the shape rules, the forcing keywords,
+the counters and the CPU route; the card's tests (``test_torch_cuda.py``)
+hold every path and shape byte-equal to the plain version.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 
 import numpy as np
@@ -164,6 +166,129 @@ def test_launch_counters_keep_their_keys():
     A.reset_launch_counts()
     assert set(A.launch_counts().values()) == {0}
     assert A.grid_launch_counts() == {"fused": 0, "chain": 0, "combine": 0, "grid": 0}
+
+
+# ---------------------------------------------------------------------------
+# the fused chunk's two shapes: one block per shard for small shards, a
+# cluster of blocks per shard for larger ones
+
+
+@pytest.mark.parametrize("T,shape", [(8, "block"), (64, "block"),
+                                     (kernels.FUSED_BLOCK_MAX_TOKENS, "block"),
+                                     (kernels.FUSED_BLOCK_MAX_TOKENS + 1, "cluster"),
+                                     (8192, "cluster")])
+def test_fused_shape_rule(T, shape):
+    """Shards up to the threshold take the block shape, larger ones the
+    cluster; every one of them still takes the fused path."""
+    assert kernels.fused_shape(T, min(T, 64)) == shape
+    assert kernels.choose_path(T) == "fused"
+
+
+def test_fused_shape_threshold_fits_one_block():
+    assert kernels.FUSED_SHAPE_NAMES == ("block", "cluster")
+    assert kernels.FUSED_BLOCK_MAX_TOKENS <= kernels.FUSED_BLOCK_THREADS <= 1024
+    # instances count like slots: a shard never has more of them than slots
+    limit = kernels.FUSED_BLOCK_MAX_TOKENS
+    assert kernels.fused_shape(limit, limit + 1) == "cluster"
+
+
+@pytest.mark.parametrize("name", sorted(SETS))
+@pytest.mark.parametrize("n,shape", [(40, "block"), (2048, "cluster")])
+def test_serving_buckets_take_their_fused_shape(name, n, shape):
+    """Every set's small bucket (I = 64) runs one block per shard, its
+    large bucket (I = 2048) a cluster per shard."""
+    tables = compile_tables([transform(m) for m in SETS[name]()])
+    insts = [kb.GroupInstance(idx=i, definition=i % tables.num_definitions) for i in range(n)]
+    _, I, T = kb.build_group_arrays(tables, insts)
+    assert kernels.fused_shape(T, I) == shape
+
+
+def test_fused_shape_is_pure(monkeypatch):
+    """Decided from the shard's size alone, before any launch: no library,
+    no device, the same answer every time."""
+    _forbid_binding(monkeypatch)
+    limit = kernels.FUSED_BLOCK_MAX_TOKENS
+    sizes = [(64, 64), (limit, 64), (limit + 1, 64), (8192, 2048), (1 << 20, 1 << 20)]
+    answers = [kernels.fused_shape(T, I) for T, I in sizes] * 2
+    assert answers == ["block", "block", "cluster", "cluster", "cluster"] * 2
+
+
+def test_shape_keyword_is_checked():
+    limit = kernels.FUSED_BLOCK_MAX_TOKENS
+    assert kernels._pick_shape(None, 64, 64) == "block"
+    assert kernels._pick_shape(None, 8192, 2048) == "cluster"
+    assert kernels._pick_shape("cluster", 64, 64) == "cluster"
+    assert kernels._pick_shape("block", limit, 64) == "block"
+    assert kernels._pick_shape("block", kernels.FUSED_BLOCK_THREADS, 64) == "block"
+    with pytest.raises(ValueError, match="shape"):
+        kernels._pick_shape("grid", 64, 64)
+    with pytest.raises(ValueError, match="block shape"):
+        kernels._pick_shape("block", kernels.FUSED_BLOCK_THREADS + 1, 64)
+
+
+def test_a_bad_shape_raises_before_any_launch(monkeypatch):
+    _forbid_binding(monkeypatch)
+    tables = compile_tables([transform(W.one_task())])
+    dt = A.DeviceTables.from_numpy(tables, CPU)
+    state = A.make_state(tables, 8, np.zeros(8, np.int32), token_capacity=8, device=CPU)
+    with pytest.raises(ValueError, match="shape"):
+        kernels._enqueue(dt, state, 8, tables.kernel_config, 0, None, 0, 1, False, None,
+                         "graph")
+
+
+def test_public_functions_do_not_take_the_shape():
+    """Only the binding's wrappers force a shape; the public wrappers follow
+    ``fused_shape``."""
+    for fn in (A.step, A.run_collect, A.run_to_completion, M.make_sharded_step):
+        assert "shape" not in inspect.signature(fn).parameters
+    for fn in (kernels.run_steps, kernels.run_sharded_step, kernels.launch_fused):
+        assert inspect.signature(fn).parameters["shape"].default is None
+
+
+def test_fused_shape_counter_keeps_its_keys():
+    """``FUSED_SHAPES`` counts the fused chunk's launches by shape; the
+    reset clears it with the other counters."""
+    assert set(kernels.FUSED_SHAPES) == {"block", "cluster"}
+    kernels.FUSED_SHAPES["block"] = 5
+    counts = A.fused_shape_counts()
+    counts["block"] = 99
+    assert kernels.FUSED_SHAPES["block"] == 5
+    A.reset_launch_counts()
+    assert A.fused_shape_counts() == {"block": 0, "cluster": 0}
+
+
+class _FusedEntry:
+    """Stands in for the library: records the block flag each fused launch
+    was given."""
+
+    def __init__(self) -> None:
+        self.blocks: list[int] = []
+
+    def zt_collect_fused(self, *args):
+        self.blocks.append(args[-2])
+        return 0
+
+
+@pytest.mark.parametrize("T,I,forced,shape", [(64, 64, None, "block"),
+                                              (8192, 2048, None, "cluster"),
+                                              (64, 64, "cluster", "cluster"),
+                                              (1024, 256, "block", "block")])
+def test_launch_fused_passes_and_counts_its_shape(monkeypatch, T, I, forced, shape):
+    lib = _FusedEntry()
+    monkeypatch.setattr(kernels, "_on_card", lambda run: contextlib.nullcontext())
+    monkeypatch.setattr(kernels, "_stream", lambda run: 0)
+    monkeypatch.setattr(kernels, "LAUNCHES", dict(kernels.LAUNCHES))
+    monkeypatch.setattr(kernels, "GRID_LAUNCHES", dict.fromkeys(kernels.GRID_LAUNCHES, 0))
+    monkeypatch.setattr(kernels, "FUSED_SHAPES", dict.fromkeys(kernels.FUSED_SHAPES, 0))
+    run = kernels._Run(
+        lib=type("Lib", (), {"lib": lib})(), tables=kernels._Tables(),
+        st=kernels._State(T=T, I=I, NS=1), sc=kernels._Scratch(), state={}, scratch=None,
+        ctl=None, nb_free=1, nb_req=1, cfg=0, sharded=False, st_in=kernels._State(), keep=())
+    kernels.launch_fused(run, 8, 0, None, 0, forced)
+    kernels.launch_fused(run, 8, 0, None, 0, forced)
+    assert lib.blocks == [int(shape == "block")] * 2
+    assert kernels.FUSED_SHAPES == {"block": 0, "cluster": 0, shape: 2}
+    assert kernels.GRID_LAUNCHES["fused"] == 2
 
 
 def test_tables_struct_is_built_once_per_table_set():

@@ -60,7 +60,12 @@
 //     quiet shard's cluster leaves the loop and zeroes the rows it never
 //     wrote. The working set of a shard at the serving geometry (0.45 MB of
 //     state, ~1 MB of scratch, 1.3 MB of rows per chunk) stays in the 50 MB
-//     L2 across phases.
+//     L2 across phases. A small shard (the serving path's small bucket, I =
+//     64) takes the block shape instead (k_chunk_block): one plain block
+//     of pow2(max(T, I, 32)) threads per shard, __syncthreads for the
+//     cluster barrier and the block's own totals, since at T = 64 a cluster
+//     of 8 x 1024 threads leaves 1016 of each block's threads idle and
+//     spends its lock-steps on cluster barriers.
 //   - The chain (zt_prepare + zt_steps), for larger shards (and
 //     run_to_completion when forced): every phase one grid-wide launch over
 //     all shards (blockIdx.y, or blockIdx.z for the scan, or blockIdx.x for
@@ -127,6 +132,10 @@ constexpr int SCAN_TILE = SCAN_THREADS * SCAN_ITEMS;
 constexpr int CLUSTER = 8;
 constexpr int FUSED_THREADS = 1024;
 constexpr int FUSED_MAX_TOKENS = 1 << 14;
+// the fused chunk's block shape: one block of pow2(max(T, I, 32)) threads
+// per shard, for shards of at most this many slots (ops/kernels.py's
+// fused_shape picks it, below a threshold measured on the card)
+constexpr int FUSED_BLOCK_THREADS = 1024;
 
 // the grid kernel: threads per block (two blocks per SM at 64 registers),
 // and the most blocks it launches (block_sums holds three totals per block)
@@ -709,10 +718,16 @@ __device__ int block_sum(int v) {
 }
 
 // ---------------------------------------------------------------------------
-// The fused chunk: one cluster of CLUSTER blocks per shard, one launch for
-// the whole chunk. Every thread of the cluster reaches every cluster
-// barrier (no early return), and the loop's exit is decided from values
-// every block reads alike.
+// The fused chunk: CL blocks of NT threads per shard, one launch for the
+// whole chunk, in one of two shapes. The cluster shape (k_chunk) runs each
+// shard as a cluster of CLUSTER blocks of FUSED_THREADS; the block shape
+// (k_chunk_block) runs each shard as one plain block of pow2(max(T, I, 32))
+// threads, for shards of at most FUSED_BLOCK_THREADS slots. Both compute
+// the same function from the same item code: only the barrier's scope (a
+// cluster barrier, or __syncthreads) and where the other blocks' totals are
+// read (distributed shared memory, or the block's own) differ. Every thread
+// of a shard reaches every barrier (no early return), and the loop's exit
+// is decided from values every block reads alike.
 
 // [lo, hi) of n items cut into `parts` contiguous ranges, range `k`
 struct Range {
@@ -725,21 +740,52 @@ __device__ __forceinline__ Range part_of(int n, int parts, int k) {
   return {lo, min(lo + per, n)};
 }
 
-__global__ void __launch_bounds__(FUSED_THREADS, 1)
-k_chunk(ZtTables tb, ZtState in, ZtState st, ZtScratch sc, int n_steps, int mode, int cfg,
-        int32_t* out, int64_t row_len) {
-  constexpr int NT = FUSED_THREADS;
-  cg::cluster_group cluster = cg::this_cluster();
+// the barrier between the phases of one shard: a cluster barrier
+// (barrier.cluster.arrive.release + wait.acquire, which orders global
+// memory too) across CL blocks, or the block's own
+template <int CL>
+__device__ __forceinline__ void shard_sync() {
+  if constexpr (CL == 1) {
+    __syncthreads();
+  } else {
+    cg::this_cluster().sync();
+  }
+}
+
+template <int CL>
+__device__ __forceinline__ int shard_block_rank() {
+  if constexpr (CL == 1) {
+    return 0;
+  } else {
+    return (int)cg::this_cluster().block_rank();
+  }
+}
+
+// block q's copy of a __shared__ array of the shard's blocks
+template <int CL>
+__device__ __forceinline__ const int* block_shared(int* p, int q) {
+  if constexpr (CL == 1) {
+    return p;
+  } else {
+    return cg::this_cluster().map_shared_rank(p, q);
+  }
+}
+
+template <int NT, int CL>
+__device__ __forceinline__ void chunk_body(const ZtTables& tb, const ZtState& in,
+                                           const ZtState& st, const ZtScratch& sc,
+                                           int n_steps, int mode, int cfg, int32_t* out,
+                                           int64_t row_len) {
   // per block: its free slots, its placed requests, its active tokens
   __shared__ int totals[3];
-  const int b = (int)cluster.block_rank();
-  const int s = blockIdx.x / CLUSTER;
+  const int b = shard_block_rank<CL>();
+  const int s = blockIdx.x / CL;
   const int tid = threadIdx.x;
   const int T = st.T, I = st.I, E = tb.E, FO = tb.FO;
   const int64_t tok0 = (int64_t)s * T, i0 = (int64_t)s * I;
   // this block's tokens (and their requests), instances and instance keys
-  const Range tok = part_of(T, CLUSTER, b);
-  const Range ins = part_of(I, CLUSTER, b);
+  const Range tok = part_of(T, CL, b);
+  const Range ins = part_of(I, CL, b);
   const int r_lo = tok.lo * FO, r_hi = tok.hi * FO;
   const int k_lo = ins.lo * E, k_hi = ins.hi * E;
   // this thread's contiguous segments of the block's tokens and requests,
@@ -756,11 +802,11 @@ k_chunk(ZtTables tb, ZtState in, ZtState st, ZtScratch sc, int n_steps, int mode
     sc.pending[i0 + x] = 0;
   }
   if (b == 0 && tid == 0) prepare_counters(in, st, s);
-  cluster.sync();
+  shard_sync<CL>();
   if (scoped) {
     for (int x = tok.lo + tid; x < tok.hi; x += NT) occupancy_token(tb, st, sc, s, x);
     for (int x = k_lo + tid; x < k_hi; x += NT) occupancy_key(tb, st, sc, s, x);
-    cluster.sync();
+    shard_sync<CL>();
   }
 
   int k = 0;
@@ -778,7 +824,7 @@ k_chunk(ZtTables tb, ZtState in, ZtState st, ZtScratch sc, int n_steps, int mode
     warp_add(&st.transitions[s], trans);
     warp_add(&st.jobs_created[s], jobs);
     if (cfg & CFG_JOINS) {
-      cluster.sync();
+      shard_sync<CL>();
       for (int r = r_lo + tid; r < r_hi; r += NT) join_rank_request(tb, st, sc, s, r);
     }
     __syncthreads();
@@ -794,13 +840,13 @@ k_chunk(ZtTables tb, ZtState in, ZtState st, ZtScratch sc, int n_steps, int mode
       totals[0] = block_free;
       totals[1] = block_req;
     }
-    cluster.sync();
-    // pass 2: offsets from the lower blocks' totals (distributed shared
-    // memory), then ranks: slot_of_rank for free slots (a completing
-    // token's slot is freed), place_rank for requests
+    shard_sync<CL>();
+    // pass 2: offsets from the lower blocks' totals, then ranks:
+    // slot_of_rank for free slots (a completing token's slot is freed),
+    // place_rank for requests
     int free_total = 0, free_base = 0, req_base = 0;
-    for (int q = 0; q < CLUSTER; ++q) {
-      const int* other = cluster.map_shared_rank(totals, q);
+    for (int q = 0; q < CL; ++q) {
+      const int* other = block_shared<CL>(totals, q);
       free_total += other[0];
       if (q < b) {
         free_base += other[0];
@@ -819,7 +865,7 @@ k_chunk(ZtTables tb, ZtState in, ZtState st, ZtScratch sc, int n_steps, int mode
     for (int x = r_lo + rseg.lo; x < r_lo + rseg.hi; ++x) {
       if (sc.proceeds[tok0 * FO + x]) sc.place_rank[tok0 * FO + x] = rank++;
     }
-    cluster.sync();
+    shard_sync<CL>();
     // place
     bool ovf = false;
     for (int r = r_lo + tid; r < r_hi; r += NT) {
@@ -827,7 +873,7 @@ k_chunk(ZtTables tb, ZtState in, ZtState st, ZtScratch sc, int n_steps, int mode
       place_request(tb, st, sc, mode, cfg, row, s, r, free_total, placed, ovf);
     }
     if (__any_sync(0xffffffffu, ovf) && (tid & 31) == 0) st.overflow[s] = 1;
-    cluster.sync();
+    shard_sync<CL>();
     // finish: first the block's keys, one per thread (each instance's
     // pending arrivals summed by atomics), then its instances
     for (int x = k_lo + tid; x < k_hi; x += NT) {
@@ -845,10 +891,10 @@ k_chunk(ZtTables tb, ZtState in, ZtState st, ZtScratch sc, int n_steps, int mode
     warp_add(&st.completed[s], newly);
     warp_add(&st.transitions[s], 2 * newly);
     if (scoped) {
-      cluster.sync();
+      shard_sync<CL>();
       for (int x = tok.lo + tid; x < tok.hi; x += NT) occupancy_token(tb, st, sc, s, x);
       for (int x = k_lo + tid; x < k_hi; x += NT) occupancy_key(tb, st, sc, s, x);
-      cluster.sync();
+      shard_sync<CL>();
     }
     // count active tokens (after the recount of scopes)
     int act = 0;
@@ -858,9 +904,9 @@ k_chunk(ZtTables tb, ZtState in, ZtState st, ZtScratch sc, int n_steps, int mode
     int block_active;
     block_exclusive_scan(act, &block_active);
     if (tid == 0) totals[2] = block_active;
-    cluster.sync();
+    shard_sync<CL>();
     int active = 0;
-    for (int q = 0; q < CLUSTER; ++q) active += cluster.map_shared_rank(totals, q)[2];
+    for (int q = 0; q < CL; ++q) active += block_shared<CL>(totals, q)[2];
     if (row != nullptr && b == 0 && tid == 0) {
       const int64_t tail = (int64_t)T * (2 + FO);
       row[tail] = collect ? active : 0;
@@ -873,11 +919,26 @@ k_chunk(ZtTables tb, ZtState in, ZtState st, ZtScratch sc, int n_steps, int mode
   if (out != nullptr) {
     for (int j = k; j < n_steps; ++j) {
       int32_t* row = shard_row(out + (int64_t)j * row_len * st.NS, s, T, FO);
-      for (int64_t x = (int64_t)b * NT + tid; x < row_len; x += (int64_t)CLUSTER * NT) row[x] = 0;
+      for (int64_t x = (int64_t)b * NT + tid; x < row_len; x += (int64_t)CL * NT) row[x] = 0;
     }
   }
   // no block leaves while another may still read its shared memory
-  cluster.sync();
+  shard_sync<CL>();
+}
+
+__global__ void __launch_bounds__(FUSED_THREADS, 1)
+k_chunk(ZtTables tb, ZtState in, ZtState st, ZtScratch sc, int n_steps, int mode, int cfg,
+        int32_t* out, int64_t row_len) {
+  chunk_body<FUSED_THREADS, CLUSTER>(tb, in, st, sc, n_steps, mode, cfg, out, row_len);
+}
+
+// the block shape: a plain launch of NS blocks of NT threads, its register
+// budget set by its own block size
+template <int NT>
+__global__ void __launch_bounds__(NT, 1)
+k_chunk_block(ZtTables tb, ZtState in, ZtState st, ZtScratch sc, int n_steps, int mode,
+              int cfg, int32_t* out, int64_t row_len) {
+  chunk_body<NT, 1>(tb, in, st, sc, n_steps, mode, cfg, out, row_len);
 }
 
 // ---------------------------------------------------------------------------
@@ -1372,6 +1433,38 @@ inline unsigned grid_for(int64_t n, int block) {
   return (unsigned)(g < 1 ? 1 : g);
 }
 
+// the block shape's threads for a shard of T slots and I instances
+inline int block_threads(int T, int I) {
+  int n = 32;
+  while (n < T || n < I) n <<= 1;
+  return n;
+}
+
+// the block shape's launch: NS blocks, its threads fixed at compile time
+cudaError_t launch_block(const ZtTables& tb, const ZtState& in, const ZtState& st,
+                         const ZtScratch& sc, int n_steps, int mode, int cfg, int32_t* out,
+                         int64_t row_len, cudaStream_t stream) {
+  static_assert(FUSED_BLOCK_THREADS == 1024, "the cases below end at 1024 threads");
+  const dim3 grid((unsigned)st.NS);
+  switch (block_threads(st.T, st.I)) {
+#define ZT_BLOCK(nt)                                                                  \
+  case nt:                                                                            \
+    k_chunk_block<nt><<<grid, nt, 0, stream>>>(tb, in, st, sc, n_steps, mode, cfg, out, \
+                                               row_len);                              \
+    break;
+    ZT_BLOCK(32)
+    ZT_BLOCK(64)
+    ZT_BLOCK(128)
+    ZT_BLOCK(256)
+    ZT_BLOCK(512)
+    ZT_BLOCK(1024)
+#undef ZT_BLOCK
+    default:
+      return cudaErrorInvalidValue;  // more than FUSED_BLOCK_THREADS slots
+  }
+  return cudaGetLastError();
+}
+
 // the fused chunk's launch configuration for NS shards
 inline cudaLaunchConfig_t fused_config(int NS, cudaStream_t stream,
                                        cudaLaunchAttribute* attr) {
@@ -1478,12 +1571,17 @@ int zt_steps(const ZtTables* tb, const ZtState* st, const ZtScratch* sc, int n_s
 }
 
 // The fused chunk: copy-in, scratch init and n_steps lock-steps of every
-// shard in ONE launch of NS clusters (no completion mode). out, when given,
+// shard in ONE launch (no completion mode): NS clusters, or with `block`
+// NS blocks (shards of at most FUSED_BLOCK_THREADS slots). out, when given,
 // is [n_steps, NS * row_len]; every row a shard did not reach is zeroed.
 int zt_collect_fused(const ZtTables* tb, const ZtState* in, const ZtState* st,
                      const ZtScratch* sc, int n_steps, int mode, int cfg, int32_t* out,
-                     int64_t row_len, void* stream) {
+                     int64_t row_len, int block, void* stream) {
   if (mode & MODE_COMPLETION) return (int)cudaErrorInvalidValue;
+  if (block) {
+    return (int)launch_block(*tb, *in, *st, *sc, n_steps, mode, cfg, out, row_len,
+                             (cudaStream_t)stream);
+  }
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t config = fused_config(st->NS, (cudaStream_t)stream, &attr);
   cudaError_t err = cudaLaunchKernelEx(&config, k_chunk, *tb, *in, *st, *sc,
@@ -1577,6 +1675,8 @@ int zt_fused_max_tokens() { return FUSED_MAX_TOKENS; }
 int zt_fused_threads() { return FUSED_THREADS; }
 
 int zt_cluster_blocks() { return CLUSTER; }
+
+int zt_fused_block_threads() { return FUSED_BLOCK_THREADS; }
 
 int zt_grid_threads() { return GRID_THREADS; }
 

@@ -737,9 +737,11 @@ def run_to_completion(tables: DeviceTables, state: dict, max_steps: int = 1000,
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count, every grid-launch count and the
-    cross-group counter sum's count to 0, and forget the calls' geometry."""
-    for counts in (kernels.LAUNCHES, kernels.GRID_LAUNCHES, kernels.GROUP_LAUNCHES):
+    """Set every kernel's launch count, every grid-launch count, the fused
+    chunk's counts by shape and the cross-group counter sum's count to 0,
+    and forget the calls' geometry."""
+    for counts in (kernels.LAUNCHES, kernels.GRID_LAUNCHES, kernels.FUSED_SHAPES,
+                   kernels.GROUP_LAUNCHES):
         for name in counts:
             counts[name] = 0
     kernels.GEOMETRY.clear()
@@ -753,6 +755,12 @@ def grid_launch_counts() -> dict:
     """CUDA grid launches the automaton wrappers enqueued, by path (see
     ``kernels.GRID_LAUNCHES``)."""
     return dict(kernels.GRID_LAUNCHES)
+
+
+def fused_shape_counts() -> dict:
+    """The fused chunk's launches by shape, ``"block"`` or ``"cluster"``
+    (see ``kernels.FUSED_SHAPES``)."""
+    return dict(kernels.FUSED_SHAPES)
 
 
 def geometry_counts() -> list[dict]:

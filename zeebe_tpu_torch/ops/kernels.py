@@ -15,9 +15,11 @@ stream by one of three paths, chosen before any launch:
 
 - ``"fused"`` (``step`` and ``run_collect`` on shards of at most
   ``FUSED_MAX_TOKENS`` slots, the serving geometry among them, by
-  ``choose_path``): ``zt_collect_fused``, ONE launch per chunk, a
-  thread-block cluster per shard that copies the state in and loops over
-  the steps;
+  ``choose_path``): ``zt_collect_fused``, ONE launch per chunk that copies
+  the state in and loops over the steps, in one of two shapes chosen by
+  ``fused_shape`` from the shard's slots: a thread-block cluster per shard,
+  or for small shards (up to ``FUSED_BLOCK_MAX_TOKENS`` slots) one plain
+  block per shard;
 - ``"chain"`` (``step`` and ``run_collect`` on larger shards):
   ``zt_prepare`` copies the state in and initializes the scratch, and
   ``zt_steps`` enqueues ~10 grid-wide launches per lock-step;
@@ -26,11 +28,13 @@ stream by one of three paths, chosen before any launch:
 
 ``run_steps``, ``run_sharded_step`` and ``run_until_quiet`` take ``path=`` to
 force another path (``run_until_quiet``: ``"grid"`` or ``"chain"``; the
-others: ``"fused"`` or ``"chain"``), so the card's tests and
-``chip_smoke.py`` hold each against the plain version; the public functions
-of ``ops/automaton.py`` do not. Nothing falls back from one path to another:
-each C entry returns ``cudaGetLastError()`` (or the launch's own error), and
-a non-zero code raises ``KernelLaunchError``.
+others: ``"fused"`` or ``"chain"``), and ``run_steps``, ``run_sharded_step``
+and ``launch_fused`` take ``shape=`` to force the fused chunk's shape
+(``"block"`` or ``"cluster"``), so the card's tests and ``chip_smoke.py``
+hold each against the plain version; the public functions of
+``ops/automaton.py`` take neither. Nothing falls back from one path to
+another: each C entry returns ``cudaGetLastError()`` (or the launch's own
+error), and a non-zero code raises ``KernelLaunchError``.
 
 The decision kernel has two layouts (``run_decision``): ``"lanes"``, a
 context's 32-rule words spread over the lanes of a warp, and ``"serial"``,
@@ -44,9 +48,9 @@ local to their block). Every phase of a step is one launch over all shards.
 The counters are one per shard (``[NS]``) or one for all (a 0-d tensor,
 replicated, as ``make_sharded_step`` takes them).
 
-Counts: ``LAUNCHES`` and ``GRID_LAUNCHES`` always; ``GEOMETRY``, each
-wrapper call's geometry, only while the tracer is on (one ``enabled`` read
-per call when it is off).
+Counts: ``LAUNCHES``, ``GRID_LAUNCHES`` and ``FUSED_SHAPES`` always;
+``GEOMETRY``, each wrapper call's geometry, only while the tracer is on
+(one ``enabled`` read per call when it is off).
 """
 
 from __future__ import annotations
@@ -84,6 +88,17 @@ SCAN_TILE = 4096
 FUSED_MAX_TOKENS = 1 << 14
 FUSED_THREADS = 1024  # threads per block of the fused chunk
 CLUSTER_BLOCKS = 8  # blocks per shard cluster
+# the fused chunk's block shape: one plain block of pow2(max(T, I, 32))
+# threads per shard, at most this many
+FUSED_BLOCK_THREADS = 1024
+# shards of at most this many token slots (and instances) take the block
+# shape, larger ones the cluster: the block shape won at every T measured,
+# 64 to 1024 (chip_smoke.py's shapes phase on an H100 80GB HBM3 at 700 W,
+# one launch by the profiler, mean over the six serving sets, block |
+# cluster: 23.3 | 64.8 us at T = 64, 24.4 | 64.3 at 256, 39.7 | 66.9 at
+# 1024; one_task at T = 64: 11.5 | 35.1), and one block holds 1024 threads
+FUSED_BLOCK_MAX_TOKENS = 1024
+FUSED_SHAPE_NAMES = ("block", "cluster")
 GRID_THREADS = 512  # threads per block of the grid kernel
 GRID_MAX_BLOCKS = 1024  # the most blocks it launches
 PATHS = ("fused", "chain", "grid")
@@ -117,6 +132,10 @@ LAUNCHES = {"step": 0, "run_collect": 0, "run_to_completion": 0,
 # the library reports them), "combine" the sharded step's counter combine,
 # "grid" one per run_to_completion on the grid kernel.
 GRID_LAUNCHES = {"fused": 0, "chain": 0, "combine": 0, "grid": 0}
+
+# The fused chunk's launches by shape (``fused_shape``): each one counted
+# under "fused" in GRID_LAUNCHES too.
+FUSED_SHAPES = {"block": 0, "cluster": 0}
 
 # The automaton wrappers' calls by geometry, counted only while tracing is
 # on: (path, the KernelConfig flags of GEOMETRY_FLAGS, the bytes of each
@@ -266,7 +285,8 @@ class _Lib:
                                  _P, ctypes.c_int64, ctypes.c_int64, _I, _I, _P, count]
         lib.zt_steps.restype = ctypes.c_int
         lib.zt_collect_fused.argtypes = [ptr(_Tables), ptr(_State), ptr(_State),
-                                         ptr(_Scratch), _I, _I, _I, _P, ctypes.c_int64, _P]
+                                         ptr(_Scratch), _I, _I, _I, _P, ctypes.c_int64, _I,
+                                         _P]
         lib.zt_collect_fused.restype = ctypes.c_int
         lib.zt_fused_resources.argtypes = [count, count, count]
         lib.zt_fused_resources.restype = ctypes.c_int
@@ -286,14 +306,14 @@ class _Lib:
         lib.zt_decision_lanes_plan.argtypes = [_I] * 3 + [count] * 6
         lib.zt_decision_lanes_plan.restype = ctypes.c_int
         for name in ("zt_scan_tile", "zt_ctl_stride", "zt_fused_max_tokens",
-                     "zt_fused_threads", "zt_cluster_blocks", "zt_grid_threads",
-                     "zt_grid_max_blocks", "zt_decision_max_atoms"):
+                     "zt_fused_threads", "zt_cluster_blocks", "zt_fused_block_threads",
+                     "zt_grid_threads", "zt_grid_max_blocks", "zt_decision_max_atoms"):
             getattr(lib, name).restype = ctypes.c_int
         if (lib.zt_scan_tile(), lib.zt_ctl_stride(), lib.zt_fused_max_tokens(),
-                lib.zt_fused_threads(), lib.zt_cluster_blocks(), lib.zt_grid_threads(),
-                lib.zt_grid_max_blocks()) != (
+                lib.zt_fused_threads(), lib.zt_cluster_blocks(), lib.zt_fused_block_threads(),
+                lib.zt_grid_threads(), lib.zt_grid_max_blocks()) != (
                 SCAN_TILE, CTL_N, FUSED_MAX_TOKENS, FUSED_THREADS, CLUSTER_BLOCKS,
-                GRID_THREADS, GRID_MAX_BLOCKS):
+                FUSED_BLOCK_THREADS, GRID_THREADS, GRID_MAX_BLOCKS):
             raise KernelBuildError("a constant of the library (scan tile, control "
                                    "stride, fused chunk or grid kernel shape) differs "
                                    "from the binding")
@@ -420,6 +440,15 @@ def choose_path(tokens_per_shard: int) -> str:
     """The shape rule, decided before any launch: ``"fused"`` for shards of
     at most ``FUSED_MAX_TOKENS`` token slots, else ``"chain"``."""
     return "fused" if tokens_per_shard <= FUSED_MAX_TOKENS else "chain"
+
+
+def fused_shape(tokens_per_shard: int, instances_per_shard: int) -> str:
+    """The fused chunk's launch shape, decided before any launch from the
+    shard's size alone: ``"block"`` (one block per shard) for shards of at
+    most ``FUSED_BLOCK_MAX_TOKENS`` token slots and instances, else
+    ``"cluster"``."""
+    small = max(tokens_per_shard, instances_per_shard) <= FUSED_BLOCK_MAX_TOKENS
+    return "block" if small else "cluster"
 
 
 @dataclasses.dataclass
@@ -551,17 +580,21 @@ def launch_steps(run: _Run, n_steps: int, mode: int, out: torch.Tensor | None,
 
 
 def launch_fused(run: _Run, n_steps: int, mode: int, out: torch.Tensor | None,
-                 row_len: int) -> None:
+                 row_len: int, shape: str | None = None) -> None:
     """Enqueue the fused chunk on a run: copy-in and ``n_steps`` lock-steps
-    of every shard in one cluster launch (no synchronization). The copy-in
-    makes a run reusable: each launch starts from the caller's state."""
+    of every shard in one launch of ``fused_shape``'s shape, or of the
+    forced ``shape`` (no synchronization). The copy-in makes a run
+    reusable: each launch starts from the caller's state."""
+    shape = _pick_shape(shape, run.st.T, run.st.I)
     out_ptr = out.data_ptr() if out is not None else None
     with _on_card(run):
         code = run.lib.lib.zt_collect_fused(
             ctypes.byref(run.tables), ctypes.byref(run.st_in), ctypes.byref(run.st),
-            ctypes.byref(run.sc), n_steps, mode, run.cfg, out_ptr, row_len, _stream(run))
+            ctypes.byref(run.sc), n_steps, mode, run.cfg, out_ptr, row_len,
+            int(shape == "block"), _stream(run))
     _check(code, "zt_collect_fused")
     GRID_LAUNCHES["fused"] += 1
+    FUSED_SHAPES[shape] += 1
     LAUNCHES["sharded_step" if run.sharded else "step"] += n_steps
 
 
@@ -586,6 +619,17 @@ def _pick(path: str | None, tokens_per_shard: int) -> str:
     return path
 
 
+def _pick_shape(shape: str | None, tokens_per_shard: int, instances_per_shard: int) -> str:
+    if shape is None:
+        return fused_shape(tokens_per_shard, instances_per_shard)
+    if shape not in FUSED_SHAPE_NAMES:
+        raise ValueError(f"shape must be one of {FUSED_SHAPE_NAMES}, got {shape!r}")
+    if shape == "block" and max(tokens_per_shard, instances_per_shard) > FUSED_BLOCK_THREADS:
+        raise ValueError(f"the block shape takes shards of at most {FUSED_BLOCK_THREADS} "
+                         f"token slots, got {tokens_per_shard}")
+    return shape
+
+
 def _pick_completion(path: str | None) -> str:
     """run_until_quiet's path: the grid kernel unless forced onto the chain."""
     if path is None:
@@ -608,14 +652,17 @@ def _count_geometry(path: str, tables, state: dict, config,
 
 def _enqueue(tables, state: dict, n_steps: int, config, mode: int,
              out: torch.Tensor | None, row_len: int, num_shards: int, sharded: bool,
-             path: str | None) -> _Run:
-    """Allocate and enqueue ``n_steps`` lock-steps by the chosen path."""
-    path = _pick(path, state["elem"].shape[0] // num_shards)
+             path: str | None, shape: str | None = None) -> _Run:
+    """Allocate and enqueue ``n_steps`` lock-steps by the chosen path (and
+    the fused chunk's shape)."""
+    T = state["elem"].shape[0] // num_shards
+    path = _pick(path, T)
+    shape = _pick_shape(shape, T, state["def_of"].shape[0] // num_shards)
     if _TRACER.enabled:
         _count_geometry(path, tables, state, config, out)
     if path == "fused":
         run = allocate(tables, state, config, num_shards, sharded)
-        launch_fused(run, n_steps, mode, out, row_len)
+        launch_fused(run, n_steps, mode, out, row_len, shape)
     else:
         run = prepare(tables, state, config, mode, out, num_shards, sharded)
         launch_steps(run, n_steps, mode, out, row_len)
@@ -624,12 +671,13 @@ def _enqueue(tables, state: dict, n_steps: int, config, mode: int,
 
 def run_steps(tables, state: dict, n_steps: int, config, auto_jobs: bool,
               emit_events: bool, mode: str, num_shards: int = 1, sharded: bool = False,
-              path: str | None = None):
+              path: str | None = None, shape: str | None = None):
     """``mode="collect"``: run_collect (events on, early exit on the device,
     per shard); ``mode="step"``: one step. Returns (state', packed rows |
     None); the rows are [n_steps, num_shards * row_len], shard s at columns
     [s * row_len, (s + 1) * row_len). ``path`` forces ``"fused"`` or
-    ``"chain"``; None takes ``choose_path``'s."""
+    ``"chain"``; None takes ``choose_path``'s. ``shape`` forces the fused
+    chunk's ``"block"`` or ``"cluster"``; None takes ``fused_shape``'s."""
     T = state["elem"].shape[0] // num_shards
     FO = tables.out_target.shape[2]
     row_len = T * (2 + FO) + 2
@@ -640,23 +688,24 @@ def run_steps(tables, state: dict, n_steps: int, config, auto_jobs: bool,
                        device=state["elem"].device)
            if emit_events else None)
     run = _enqueue(tables, state, n_steps, config, bits, out, row_len, num_shards, sharded,
-                   path)
+                   path, shape)
     if mode == "collect":
         LAUNCHES["sharded_collect" if sharded else "run_collect"] += 1
     return run.state, out
 
 
 def run_sharded_step(tables, state: dict, num_shards: int, config,
-                     auto_jobs: bool, path: str | None = None) -> dict:
+                     auto_jobs: bool, path: str | None = None,
+                     shape: str | None = None) -> dict:
     """make_sharded_step's program: one lock-step of every shard (no events),
     then ``zt_combine`` writes the counters: the input's plus the sum of the
     shards' deltas, and the OR of the shards' overflow flags. The state's
-    counters are 0-d (replicated) on input and on output. ``path`` as in
-    ``run_steps``."""
+    counters are 0-d (replicated) on input and on output. ``path`` and
+    ``shape`` as in ``run_steps``."""
     if tuple(state["transitions"].shape) != ():
         raise ValueError("make_sharded_step takes replicated (0-d) counters")
     bits = MODE_AUTO_JOBS if auto_jobs else 0
-    run = _enqueue(tables, state, 1, config, bits, None, 0, num_shards, True, path)
+    run = _enqueue(tables, state, 1, config, bits, None, 0, num_shards, True, path, shape)
     new_state = dict(run.state)
     if num_shards > 1:
         for name in _COUNTERS:

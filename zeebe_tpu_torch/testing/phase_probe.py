@@ -5,8 +5,11 @@
 
 Builds an instrumented copy of ``csrc/automaton.cu`` into
 ``build/phase_probe/``: block 0, thread 0 of the first cluster reads
-``%globaltimer`` before and after every cluster barrier of ``k_chunk`` and
-adds the intervals up per barrier. Then runs fused chunks of 8 steps of the
+``%globaltimer`` before and after every shard barrier of the fused chunk's
+body (a cluster barrier in ``k_chunk``, ``__syncthreads`` in the block
+shape's ``k_chunk_block``, which shards of up to
+``kernels.FUSED_BLOCK_MAX_TOKENS`` slots take) and adds the intervals up
+per barrier. Then runs fused chunks of 8 steps of the
 mixed set (I = T / 4) and prints, per chunk, the work before each barrier
 (block 0's own phase) and the wait at it (the other blocks' lag plus the
 barrier itself). The barriers, in the order of the source: 0 after the
@@ -69,23 +72,24 @@ extern "C" int zt_probe_reset() {
 
 
 def instrumented_source(threads: int) -> tuple[str, int]:
-    """The kernel source with a probe around every cluster barrier of
-    k_chunk, at ``threads`` per block; returns it and the barrier count."""
+    """The kernel source with a probe around every shard barrier of the
+    fused chunk, at ``threads`` per block of the cluster shape; returns it
+    and the barrier count."""
     src = (kernels.CSRC / "automaton.cu").read_text()
     src = src.replace("namespace cg = cooperative_groups;",
                       "namespace cg = cooperative_groups;\n" + PROBE, 1)
     src = re.sub(r"constexpr int FUSED_THREADS = \d+;",
                  f"constexpr int FUSED_THREADS = {threads};", src)
-    start = src.index("k_chunk(ZtTables tb")
+    start = src.index("chunk_body(const ZtTables& tb")
     end = src.index("// The chain: one grid-wide launch")
     body = src[start:end].replace(
-        "cg::cluster_group cluster = cg::this_cluster();",
-        "cg::cluster_group cluster = cg::this_cluster();\n"
+        "const int b = shard_block_rank<CL>();",
+        "const int b = shard_block_rank<CL>();\n"
         "  unsigned long long probe_t = probe_now();", 1)
-    parts = body.split("cluster.sync();")
+    parts = body.split("shard_sync<CL>();")
     probed = parts[0]
     for k, part in enumerate(parts[1:]):
-        probed += f"PROBE({2 * k}); cluster.sync(); PROBE({2 * k + 1});" + part
+        probed += f"PROBE({2 * k}); shard_sync<CL>(); PROBE({2 * k + 1});" + part
     return src[:start] + probed + src[end:] + READ, len(parts) - 1
 
 
