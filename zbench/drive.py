@@ -58,15 +58,23 @@ def plain(reply: tuple) -> dict:
 
 class Completions:
     """Instances by key: how many of their jobs were completed and when the
-    reply that ended each instance came. A worker may complete an
-    instance's last job before its client has read the create's reply, so
-    either side may come first."""
+    reply that ended each instance came. An instance ends when its
+    completed jobs reach the count that the reference gives for its ``x``
+    (``jobs_for(x)``). The client learns the key from the create's reply,
+    and a worker may complete the instance's last job before the client
+    has read that reply, so either side may come first: :meth:`created`
+    and :meth:`job_completed` each end the instance where the other has
+    already done its part."""
 
-    def __init__(self, jobs_per_instance: int) -> None:
-        self.jobs = jobs_per_instance
+    def __init__(self, jobs_for) -> None:
+        self.jobs_for = jobs_for
         self._lock = threading.Lock()
         self._done: dict[int, threading.Event] = {}
         self._count: dict[int, int] = {}
+        #: the reference's count of jobs, per instance whose create was read
+        self._expected: dict[int, int] = {}
+        #: the time of each instance's latest job completion
+        self._last: dict[int, float] = {}
         self.ended_at: dict[int, float] = {}
         self._released = False
 
@@ -77,10 +85,24 @@ class Completions:
                 event.set()
             return event
 
+    def created(self, key: int, x: int, at: float) -> None:
+        """The client read the create's reply for an instance of ``x`` at
+        ``at``; an instance with no job ends there."""
+        jobs = self.jobs_for(x)
+        with self._lock:
+            self._expected[key] = jobs
+            done = self._count.get(key, 0) >= jobs
+            if done and jobs:
+                at = self._last[key]
+        if done:
+            self.end(key, at)
+
     def job_completed(self, key: int, at: float) -> None:
         with self._lock:
             n = self._count[key] = self._count.get(key, 0) + 1
-        if n == self.jobs:
+            self._last[key] = at
+            done = n == self._expected.get(key)
+        if done:
             self.end(key, at)
 
     def end(self, key: int, at: float) -> None:
@@ -108,8 +130,8 @@ class ClosedLoop:
     ``stop_creating`` lets every client finish the instance it waits for
     and create no other; ``stop`` ends the workers."""
 
-    def __init__(self, runtime, process_id: str, job_types: tuple[str, ...],
-                 jobs_per_instance: int, traffic: dict, seed: int, worker: str) -> None:
+    def __init__(self, runtime, process_id: str, job_types: tuple[str, ...], jobs_for,
+                 traffic: dict, seed: int, worker: str) -> None:
         self.runtime = runtime
         self.process_id = process_id
         self.job_types = job_types
@@ -120,7 +142,7 @@ class ClosedLoop:
         self.start_spread_s = float(traffic["start_spread_s"])
         self.seed = seed
         self.worker = worker
-        self.completions = Completions(jobs_per_instance)
+        self.completions = Completions(jobs_for)
         self.creating = threading.Event()
         self.stopping = threading.Event()
         self._lock = threading.Lock()
@@ -200,8 +222,7 @@ class ClosedLoop:
             if reply.is_rejection:
                 self.errors.append(f"create rejected: {plain(compact(reply))}")
                 return
-            if self.completions.jobs == 0:
-                self.completions.end(key, replied)
+            self.completions.created(key, x, replied)
             ended = self.completions.wait(key)
             with self._lock:
                 self.instances.append((key, partition, sent, replied, ended))

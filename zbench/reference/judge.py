@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import random
 
-from zbench.reference.bpmn import LinearProcess
+from zbench.reference.bpmn import Process
 from zbench.reference.expect import ANY_DEADLINE, Sym, command_positions, instance_records
 
 #: the numbers a run compares, each with its limit (an exact comparison:
@@ -101,6 +101,71 @@ def compare_instance(expected: list[dict], actual: list[dict]) -> str | None:
     return None
 
 
+def in_step_order(records: list[dict]) -> tuple[list[dict] | None, str | None]:
+    """An instance's records with each client command (source -1) put just
+    before the first record of its step, and None; or None and what is out
+    of order. A client's command lands in the log when it arrives, so where
+    a client completes several of an instance's jobs at once, another
+    command may come between a command and its step. The steps themselves
+    are the engine's: each follows its command, and they come in the order
+    of their commands, or the instance is out of order. For an instance
+    whose commands each wait for the step before (a process of one path),
+    this is the log's own order."""
+    commands = {r["position"]: r for r in records if r["source"] == -1}
+    out, placed = [], []
+    for r in records:
+        if r["source"] == -1:
+            continue
+        if r["source"] in commands and r["source"] not in placed:
+            placed.append(r["source"])
+            out.append(commands[r["source"]])
+        out.append(r)
+    if placed != sorted(placed):
+        return None, (f"the steps of the commands at positions {placed} do not follow "
+                      f"the order of their commands")
+    out += [r for position, r in commands.items() if position not in placed]
+    return out, None
+
+
+def completion_order(records: list[dict]) -> list[str] | None:
+    """The ids of the tasks whose jobs the instance's ``JOB COMPLETE``
+    commands completed, in log order: the order the client chose, which the
+    reference takes as an input. None where a command names a job that the
+    instance did not create."""
+    task_of = {r["key"]: r["value"].get("elementId") for r in records
+               if r["valueType"] == "JOB" and r["intent"] == "CREATED"
+               and r["recordType"] == "EVENT" and isinstance(r["value"], dict)}
+    order = []
+    for r in records:
+        if r["valueType"] == "JOB" and r["intent"] == "COMPLETE" \
+                and r["recordType"] == "COMMAND":
+            if r["key"] not in task_of:
+                return None
+            order.append(task_of[r["key"]])
+    return order
+
+
+def instance_diff(process: Process, x: int, worker: str, records: list[dict],
+                  cache: dict) -> str | None:
+    """None where an instance of ``x`` whose log holds ``records`` wrote
+    what the reference gives for its completion order, else the first
+    difference. ``cache`` keeps the reference's records by (x, order)."""
+    records, why = in_step_order(records)
+    if records is None:
+        return why
+    order = completion_order(records)
+    if order is None:
+        return "a job completion names a job the instance did not create"
+    at = (x, tuple(order))
+    if at not in cache:
+        try:
+            cache[at] = instance_records(process, x, worker, order)
+        except ValueError as e:
+            cache[at] = str(e)
+    expected = cache[at]
+    return expected if isinstance(expected, str) else compare_instance(expected, records)
+
+
 def _reply_matches(reply: dict | None, value_type: str, intent: str, key: int,
                    logged: dict | None) -> bool:
     """A reply names the event the log holds for its command."""
@@ -118,7 +183,7 @@ def sample(keys: list[int], n: int, seed: int, always: list[int]) -> list[int]:
     return sorted(set(always) | set(random.Random(seed).sample(rest, n - len(set(always)))))
 
 
-def judge(process: LinearProcess, worker: str, run: dict) -> dict:
+def judge(process: Process, worker: str, run: dict) -> dict:
     """The run's compared numbers (see :data:`LIMITS`), with
     ``instances_checked`` and the first differences found.
 
@@ -133,7 +198,9 @@ def judge(process: LinearProcess, worker: str, run: dict) -> dict:
         completion;
       - ``activations``: [{partition, reply}] for every activation;
       - ``checked``: the instance keys judged record by record (those the
-        window saw complete, or a sample of them);
+        window saw complete, or a sample of them), each in step order
+        (:func:`in_step_order`) against the reference's records for its
+        ``x`` and the order of its job completions;
       - ``leftovers``: instance key -> what its state still holds (element
         instances, jobs, variables) after it completed.
     """
@@ -190,10 +257,10 @@ def judge(process: LinearProcess, worker: str, run: dict) -> dict:
                 and owner[0] == a["partition"])
         if not ok:
             fault("reply_mismatches", f"activation on partition {a['partition']}: {reply!r}")
+    expected: dict = {}
     for key in run["checked"]:
         pid, x = created[key]
-        diff = compare_instance(instance_records(process, x, worker),
-                                by_partition[pid].get(key, []))
+        diff = instance_diff(process, x, worker, by_partition[pid].get(key, []), expected)
         if diff is not None:
             fault("instance_mismatches", f"instance {key} on partition {pid}: {diff}")
         held = run["leftovers"].get(key)

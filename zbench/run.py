@@ -61,6 +61,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, fault=None) -
     from zbench import drive, faults, stats, system
     from zbench.cells import reader
     from zbench.reference import bpmn
+    from zbench.reference.expect import jobs_completed
     from zbench.reference.judge import LIMITS, judge, sample
     from zbench.trace import DeviceTrace
     from zbench.window import Window, registry_state
@@ -78,6 +79,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, fault=None) -
                      router_link_s=card["link_s"])
     process = bpmn.parse(cell.model_xml)
     traffic = cell.traffic
+    # the jobs an instance of each x completes, by the reference; raises
+    # here, before any run, for a model that some x would leave unfinished
+    lo, hi = traffic["x_range"]
+    jobs_by_x = {x: jobs_completed(process, x) for x in range(lo, hi + 1)}
     directory = Path(tempfile.mkdtemp(prefix="zbench-"))
     worker = "zbench-worker"
     runtime = loop = None
@@ -93,7 +98,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, fault=None) -
             system.deploy(runtime, cell.model_name, cell.model_xml, process.process_id)
             split["deploy_s"] = time.monotonic() - t
             loop = drive.ClosedLoop(runtime, process.process_id, process.job_types,
-                                    len(process.tasks), traffic, seed, worker)
+                                    jobs_by_x.__getitem__, traffic, seed, worker)
             t = time.monotonic()
             loop.start()
             time.sleep(float(traffic["warmup_s"]))

@@ -9,6 +9,7 @@ import json
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 
@@ -16,6 +17,9 @@ from zbench import cells, drive, faults
 from zbench import run as zrun
 
 CELLS = ["zeebe-3x3.one_task.c1", "zeebe-1x1.ten_tasks.c128", "zeebe-3x3.one_task.c64"]
+#: the branching fixture made into a cell (an exclusive gateway inside one
+#: branch of a fork into three tasks, and the join)
+BRANCHING = "fork_exclusive"
 
 
 def load(name: str, tmp_path):
@@ -40,6 +44,33 @@ def small(name: str, tmp_path):
         workers=min(2, cell.traffic["workers"]), warmup_s=1.5))
 
 
+def branching_cell(tmp_path):
+    """A cell of the branching fixture on the published 3x3 cluster, made as
+    a later change would make it: in a copy of the benchmark, a new model
+    file, a new traffic file (``one_task.c1``'s with its model replaced) and
+    a new ``workloads`` entry, with no file of the harness edited."""
+    root = tmp_path / "checkout"
+    shutil.copytree(cells.ROOT / "zbench", root / "zbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    shutil.copy(Path(__file__).parent / "models" / f"{BRANCHING}.bpmn",
+                root / "zbench" / "models")
+    traffic = json.loads((root / "zbench" / "traffic" / "one_task.c1.json").read_text())
+    (root / "zbench" / "traffic" / f"{BRANCHING}.c1.json").write_text(
+        json.dumps(dict(traffic, model=BRANCHING)))
+    bench = cells.manifest()
+    name = f"zeebe-3x3.{BRANCHING}.c1"
+    bench["workloads"].append({"name": name, "config": "zeebe-3x3",
+                               "traffic": f"{BRANCHING}.c1", "chips": 1,
+                               "why": "closed loop, 1 client: a fork, a join and an "
+                                      "exclusive gateway in one branch"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    for path in (cells.ROOT / "zbench").rglob("*"):
+        copy = root / "zbench" / path.relative_to(cells.ROOT / "zbench")
+        if path.is_file() and "tests" not in path.parts and "__pycache__" not in path.parts:
+            assert copy.read_bytes() == path.read_bytes(), path
+    return cells.load(name, root=root)
+
+
 @pytest.fixture(autouse=True)
 def short_waits(monkeypatch):
     monkeypatch.setattr(zrun, "DRAIN_S", 5.0)
@@ -57,6 +88,29 @@ def test_a_sound_run_is_correct(name, tmp_path):
     assert all(m["value"] > 0 for m in result["metrics"].values())
     assert list(result)[-1] == "checks"
     assert result["attempted"] > 0
+
+
+def test_a_branching_cell_made_of_new_files_runs_correct(tmp_path):
+    cell = branching_cell(tmp_path)
+    assert cell.model_name == BRANCHING and cell.traffic["clients"] == 1
+    result = zrun.run_cell(dataclasses.replace(cell, traffic=dict(cell.traffic, warmup_s=1.5)),
+                           2**31 + 23, 3.0, False, "cpu")
+    assert result["correct"], result["checks"]
+    assert result["failed"] == 0
+    assert result["checks"]["stuck_instances"]["value"] == 0
+    assert result["checks"]["instances_ended"]["value"] > 0
+
+
+def test_a_branching_cell_with_half_of_each_group_left_out_is_not_correct(tmp_path,
+                                                                          monkeypatch):
+    # several clients, so that a kernel group holds more than one command
+    monkeypatch.setattr(faults, "EVERY", 5)
+    cell = branching_cell(tmp_path)
+    cell = dataclasses.replace(cell, traffic=dict(cell.traffic, clients=8, workers=2,
+                                                  warmup_s=1.5))
+    result = zrun.run_cell(cell, 5, 3.0, False, "cpu", fault="half_left_out")
+    assert not result["correct"]
+    assert any(c["value"] > c["max"] for c in result["checks"].values() if "max" in c)
 
 
 def test_a_traced_run_reports_what_it_can_read_on_the_cpu(tmp_path):
@@ -90,11 +144,19 @@ def test_a_log_compacted_in_the_window_still_judges_correct(monkeypatch, tmp_pat
     def snapshot_later(loop):
         time.sleep(cell.traffic["warmup_s"] + 1.0)
         for pid in range(1, loop.runtime.partition_count + 1):
-            with system._guard(loop.runtime, pid):
-                leader = system._leader(loop.runtime, pid)
-                first = leader.stream.journal.first_index
-                leader.take_snapshot()
-                compacted.append(leader.stream.journal.first_index > first)
+            # a leader takes no snapshot while a write is in flight (it waits
+            # for the commit): try again until one is taken, within the window
+            deadline = time.monotonic() + 1.5
+            first = None
+            while True:
+                with system._guard(loop.runtime, pid):
+                    leader = system._leader(loop.runtime, pid)
+                    if first is None:
+                        first = leader.stream.journal.first_index
+                    if leader.take_snapshot() or time.monotonic() > deadline:
+                        compacted.append(leader.stream.journal.first_index > first)
+                        break
+                time.sleep(0.01)
 
     def start_and_snapshot(loop):
         start(loop)
